@@ -2,16 +2,29 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from deflate_tpu_torch/csrc/, drives the main
-path — level-2 ``compress_with_manifest`` of an 8 MiB mixed corpus (256
-blocks of 32 KiB), then ``decode_all`` on the card — and checks that the
-output equals the input, that zlib decodes the stream, that no block fell
-back to the host decoder, and that every kernel of the path launched.
-Then each kernel is held against its plain PyTorch version on the card,
-on operands the main path gave it, and both are timed with CUDA events.
+Builds the CUDA kernels from deflate_tpu_torch/csrc/ (one nvcc per
+source, all at once) and the native host walk (g++), then drives three
+paths on an 8 MiB mixed corpus (256 blocks of 32 KiB), each with every
+kernel count set to 0 just before it and read just after:
 
-Prints the card (nvidia-smi name and power limit), encode and decode
-MB/s, one JSON line of kernel results, and as its last line
+  A  level-2 ``compress_with_manifest``, then hinted ``decode_all`` on
+     the card (K1-K4);
+  B  a foreign stream (python zlib, level 6, raw) through
+     ``decompress(device=cuda, force_device=True)``: the skeleton walk,
+     then the wavefront decoder with history (K2, K3, K5); and the same
+     call without force_device, which the dispatcher redirects to the
+     host decoder;
+  C  ``compress_with_manifest(hints=False)``, then ``decode_all`` on the
+     card: every block through the full block inflate (K6).
+
+Each phase checks its output against the input and that its kernels
+launched.  Then each kernel is held against its plain PyTorch version on
+the card, on operands its phase gave it, and both are timed with CUDA
+events; the line of kernel results adds each kernel's bound (bytes moved
+over 3.35 TB/s) and, for K3, a PyTorch scatter of the same routing.
+
+Prints the card (nvidia-smi name and power limit), MB/s of every phase,
+one JSON line of kernel results, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or when any phase fails.
 """
@@ -28,7 +41,10 @@ import numpy as np
 CORPUS_BYTES = 8 << 20
 SEED = 42
 KERNEL_REPS = 20
-FILL_PLAIN_BLOCKS = 8
+PLAIN_PREFIX = 8              # rows the per-record plain versions run
+K6_PICK = (0, 1, 64, 65, 128, 129, 192, 193)   # two blocks of each corpus
+                                               # quarter: K6's plain blocks
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 
 
 def make_corpus(rng, nbytes: int) -> bytes:
@@ -67,7 +83,7 @@ class Capture:
         setattr(mod, name, self)
 
     def __call__(self, *args, **kw):
-        self.calls.append((args, kw))
+        self.calls.append(args + tuple(kw.values()))
         return self.fn(*args, **kw)
 
     def restore(self):
@@ -100,6 +116,17 @@ def max_abs_err(torch, a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def nbytes(torch, x) -> int:
+    """Bytes of every tensor in x (nested lists, tuples, dicts)."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(nbytes(torch, y) for y in x)
+    if isinstance(x, dict):
+        return sum(nbytes(torch, y) for y in x.values())
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -107,10 +134,12 @@ def main() -> int:
         log("chip_smoke: no CUDA device")
         return 2
 
-    from deflate_tpu_torch import _build
+    import deflate_tpu_torch as D
+    from deflate_tpu_torch import _build, native
+    from deflate_tpu_torch.models import block_decoder as BD
     from deflate_tpu_torch.models import wave_decoder as WD
-    from deflate_tpu_torch.ops import tree, wave_fill, wave_route, \
-        wave_stagea
+    from deflate_tpu_torch.ops import block_inflate, tree, wave_fill, \
+        wave_route, wave_stagea
     from deflate_tpu_torch.runtime import manifest as M
 
     dev = torch.device("cuda", 0)
@@ -123,41 +152,68 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all()
+    native.lib()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
-    data = make_corpus(np.random.default_rng(SEED), CORPUS_BYTES)
+    # kernel -> (module, wrapper, launch counter)
+    kernels = {
+        "K1": (tree, "depths_kernel", "launches"),
+        "K2": (wave_stagea, "decode_mark_kernel", "launches"),
+        "K3": (wave_route, "route_kernel", "launches"),
+        "K4": (wave_fill, "fill_matches_kernel", "launches"),
+        "K5": (wave_fill, "fill_matches_hist_kernel", "hist_launches"),
+        "K6": (block_inflate, "inflate_blocks_kernel", "launches"),
+    }
 
-    # untimed warm-up at full size: loads every kernel and grows torch's
-    # caching allocator, so the timed run below measures steady state
+    def run_phase(keys, fn):
+        """fn() with the counts of `keys` set to 0 just before and read
+        just after, and their operands captured; returns (result,
+        seconds, launches, captures)."""
+        caps = {k: Capture(kernels[k][0], kernels[k][1]) for k in keys}
+        for mod, _, cnt in kernels.values():
+            setattr(mod, cnt, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = {k: getattr(kernels[k][0], kernels[k][2]) for k in keys}
+        for c in caps.values():
+            c.restore()
+        missing = [k for k, n in launched.items() if n == 0]
+        require(not missing, f"kernels never launched: {missing}")
+        return res, dt, launched, {k: c.calls for k, c in caps.items()}
+
+    data = make_corpus(np.random.default_rng(SEED), CORPUS_BYTES)
+    mb = len(data) / 1e6
+
+    # untimed warm-ups at full size: load every kernel and grow torch's
+    # caching allocator, so the timed runs measure steady state
     ws, wm = M.compress_with_manifest(data, level=2, device=dev)
     require(M.decode_all(ws, wm, device=dev) == data, "warm-up decode")
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    raw = co.compress(data) + co.flush()
+    require(D.decompress(raw, len(data), device=dev, force_device=True)
+            == data, "warm-up foreign decode")
+    hs, hm = M.compress_with_manifest(data, level=2, hints=False, device=dev)
+    require(M.decode_all(hs, hm, device=dev) == data, "warm-up hintless")
 
-    # capture operands the main path hands each kernel
-    caps = {
-        "tree": Capture(tree, "depths_kernel"),
-        "wave_stagea": Capture(wave_stagea, "decode_mark_kernel"),
-        "wave_route": Capture(wave_route, "route_kernel"),
-        "wave_fill": Capture(wave_fill, "fill_matches_kernel"),
-    }
-    mods = {"tree": tree, "wave_stagea": wave_stagea,
-            "wave_route": wave_route, "wave_fill": wave_fill}
+    launches, calls = {}, {}
 
-    # ---- main path: encode, then device decode --------------------------
-    for m in mods.values():
-        m.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    stream, man = M.compress_with_manifest(data, level=2, device=dev)
-    torch.cuda.synchronize()
-    t_enc = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out = M.decode_all(stream, man, device=dev)
-    torch.cuda.synchronize()
-    t_dec = time.perf_counter() - t0
-    launches = {k: m.launches for k, m in mods.items()}
-    for c in caps.values():
-        c.restore()
+    # ---- phase A: encode, then hinted device decode (K1-K4) -------------
+    def phase_a():
+        s, m = M.compress_with_manifest(data, level=2, device=dev)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter()
+        return s, m, M.decode_all(s, m, device=dev), t_enc
 
+    t_start = time.perf_counter()
+    (stream, man, out, t_enc), _, la, ca = run_phase(
+        ["K1", "K2", "K3", "K4"], phase_a)
+    t_dec = time.perf_counter() - t_enc
+    t_enc -= t_start
+    launches.update(la)
+    calls.update(ca)
     require(out == data, "decoded output differs from the corpus")
     require(zlib.decompress(stream, -15) == data, "zlib rejects the stream")
     offs = [b[0] for b in man.blocks]
@@ -166,81 +222,243 @@ def main() -> int:
                                               man.hint_array(), device=dev)
     fallback = int(np.count_nonzero(err | (produced != np.asarray(sizes))))
     require(fallback == 0, f"{fallback} blocks took the host fallback")
-    missing = [k for k, n in launches.items() if n == 0]
-    require(not missing, f"kernels never launched on the main path: {missing}")
-    n_blocks = len(man.blocks)
-    print(f"encode: {len(data)} bytes, {n_blocks} blocks -> {len(stream)} "
-          f"bytes (ratio {len(stream) / len(data):.4f}) in {t_enc:.3f} s = "
-          f"{len(data) / t_enc / 1e6:.2f} MB/s", flush=True)
-    print(f"device decode: {len(data)} bytes in {t_dec:.3f} s = "
-          f"{len(data) / t_dec / 1e6:.2f} MB/s", flush=True)
+    print(f"A encode: {len(data)} bytes, {len(man.blocks)} blocks -> "
+          f"{len(stream)} bytes (ratio {len(stream) / len(data):.4f}) in "
+          f"{t_enc:.3f} s = {mb / t_enc:.2f} MB/s", flush=True)
+    print(f"A device decode: {len(data)} bytes in {t_dec:.3f} s = "
+          f"{mb / t_dec:.2f} MB/s", flush=True)
 
-    # ---- each kernel against its plain version, main-path operands ------
-    def check(kfn, pfn) -> int:
-        got, want = kfn(), pfn()
+    # ---- phase B: foreign stream, skeleton walk + wave decode (K2/K3/K5)
+    plan = WD.skeleton_plan(raw)
+    flags = np.asarray(plan["flags"])       # K5's rows, in order
+
+    def flag_counts(f) -> str:
+        return (f"{int(((f & 4) > 0).sum())} history, "
+                f"{int(((f & 1) > 0).sum())} stored, "
+                f"{int(((f & 2) > 0).sum())} ending at EOB")
+    require(((flags & 4) > 0).any() and ((flags & 1) > 0).any(),
+            "the foreign plan lacks history or stored virtual blocks")
+    st = {}
+    out, t_b, lb, cb = run_phase(
+        ["K2", "K3", "K5"],
+        lambda: D.decompress(raw, len(data), device=dev, force_device=True,
+                             stats=st))
+    launches.update({"K5": lb["K5"]})
+    calls["K5"] = cb["K5"]
+    require(out == data, "foreign decode differs from the corpus")
+    require(st["device_path"] == "wave", f"foreign path {st}")
+    st_host = {}
+    t0 = time.perf_counter()
+    out = D.decompress(raw, len(data), device=dev, stats=st_host)
+    t_host = time.perf_counter() - t0
+    require(out == data and st_host["redirected"] == "device_to_host_default"
+            and st_host["device_path"] == "native_host",
+            f"redirected decode {st_host}")
+    print(f"B foreign zlib-6 stream: {len(raw)} bytes (ratio "
+          f"{len(raw) / len(data):.4f}), {len(flags)} virtual blocks "
+          f"({flag_counts(flags)}); K2 {lb['K2']}, "
+          f"K3 {lb['K3']}, K5 {lb['K5']} launches", flush=True)
+    print(f"B device decode (force_device): {t_b:.3f} s = {mb / t_b:.2f} "
+          f"MB/s; redirected host decode: {t_host:.3f} s = "
+          f"{mb / t_host:.2f} MB/s", flush=True)
+
+    # ---- phase C: hintless manifest, every block through K6 ------------
+    def phase_c():
+        s, m = M.compress_with_manifest(data, level=2, hints=False,
+                                        device=dev)
         torch.cuda.synchronize()
-        return max_abs_err(torch, got, want)
+        t_enc = time.perf_counter()
+        return s, m, M.decode_all(s, m, device=dev), t_enc
 
+    (hstream, hman, out, t_c0), t_c, lc, cc = run_phase(["K6"], phase_c)
+    t_c = time.perf_counter() - t_c0
+    launches.update(lc)
+    calls.update(cc)
+    require(hman.hints is None and out == data, "hintless decode differs")
+    require(BD.inflate_manifest(hstream, hman.blocks, device=dev) == data,
+            "a block left K6 for the host decoder")
+    k6_blocks = sum(int(c[1].shape[0]) for c in calls["K6"])
+    require(k6_blocks == len(hman.blocks) == 256,
+            f"K6 decoded {k6_blocks} of {len(hman.blocks)} blocks")
+    print(f"C hintless device decode: {len(hman.blocks)} blocks in "
+          f"{lc['K6']} K6 launches, {t_c:.3f} s = {mb / t_c:.2f} MB/s",
+          flush=True)
+
+    # ---- each kernel against its plain version, phase operands ---------
     def timed(fn, reps: int = KERNEL_REPS) -> float:
         return cuda_ms(torch, fn, reps)
 
+    def k3_library_ms(c) -> float:
+        """One torch scatter_ moving both payloads to the same slots."""
+        pays, delta, _, left = c
+        B, L = delta.shape
+        lane = torch.arange(L, device=dev)[None, :]
+        dst = lane - delta if left else lane + delta
+        ok = (delta >= 0) & (dst >= 0) & (dst < L)
+        idx = torch.where(ok, dst, L).to(torch.int64)
+        src = torch.stack(list(pays))
+        idx = idx[None].expand_as(src).contiguous()
+        dest = torch.zeros((src.shape[0], B, L + 1), dtype=src.dtype,
+                           device=dev)
+        return timed(lambda: dest.scatter_(2, idx, src))
+
+    def fill_bytes(c) -> int:
+        # literal rows in, 8 B per record this run holds, rows out
+        lit, nm = c[0], c[2]
+        return 2 * nbytes(torch, lit) + 8 * int(nm.clamp(min=0).sum()) \
+            + nbytes(torch, c[2:])
+
+    def hist_bytes(c) -> int:
+        # only each row's sizes[b] bytes are read and written (padding
+        # rows have none), 8 B per record, the nmatch and sizes words
+        nm, sizes = c[2], c[3]
+        return 2 * int(sizes.clamp(0, wave_fill.ND).sum()) \
+            + 8 * int(nm.clamp(min=0).sum()) + nbytes(torch, c[2:])
+
     results = []
 
-    def per_call(label, src, rep, mod, calls, kfn, pfn, plain_args=None):
-        """Compare and time kernel vs plain version over every call the
-        main path made; times are summed over the calls."""
-        pa = plain_args or (lambda c: c)
-        results.append((
-            label, src, rep, mod,
-            max(check(lambda c=c: kfn(*pa(c)), lambda c=c: pfn(*pa(c)))
-                for c in calls),
-            sum(timed(lambda c=c: kfn(*c)) for c in calls),
-            sum(timed(lambda c=c: pfn(*pa(c)), 1) for c in calls)))
+    def check(name, key, src, rep, kfn, pfn, kcalls, pcalls=None,
+              bound_bytes=None, library=None, cmp=None):
+        """max |kernel - plain| over pcalls (default kcalls); kernel time
+        summed over kcalls, plain time over pcalls."""
+        pcalls = pcalls or kcalls
+        cmp = cmp or (lambda got, want, c: max_abs_err(torch, got, want))
+        err = 0
+        for c in pcalls:
+            got, want = kfn(*c), pfn(*c)
+            torch.cuda.synchronize()
+            err = max(err, cmp(got, want, c))
+        ms = sum(timed(lambda c=c: kfn(*c)) for c in kcalls)
+        pms = sum(timed(lambda c=c: pfn(*c), 1) for c in pcalls)
+        if bound_bytes is None:
+            bound_bytes = sum(nbytes(torch, c) + nbytes(torch, kfn(*c))
+                              for c in kcalls)
+        results.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[key], "max_abs_err": err, "ms": ms,
+            "plain_ms": pms,
+            "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": (sum(library(c) for c in kcalls)
+                           if library else None)})
 
-    def args_of(name):
-        out = []
-        for a, kw in caps[name].calls:
-            out.append(a + tuple(kw.values()))
-        return out
+    check("K1 tree (litlen, dist, CL tree batches of phase A)", "K1",
+          "deflate_tpu_torch/csrc/tree.cu",
+          "deflate_tpu/ops/pallas_tree.py:40", tree.depths_kernel,
+          tree.depths_plain, calls["K1"])
+    check(f"K2 decode_mark ({len(calls['K2'])} buckets of phase A)", "K2",
+          "deflate_tpu_torch/csrc/wave_stagea.cu",
+          "deflate_tpu/ops/wave_stagea.py:73",
+          wave_stagea.decode_mark_kernel, wave_stagea.decode_mark_plain,
+          calls["K2"])
+    check(f"K3 route ({len(calls['K3'])} calls of phase A; library_ms: "
+          "torch scatter_ to the same slots)", "K3",
+          "deflate_tpu_torch/csrc/wave_route.cu",
+          "deflate_tpu/ops/wave_route.py:46", wave_route.route_kernel,
+          wave_route.route_plain, calls["K3"], library=k3_library_ms)
 
-    # K1: the three tree batches of the encode (litlen, dist, CL)
-    per_call("K1 tree (litlen, dist, CL tree batches of 256)",
-             "deflate_tpu_torch/csrc/tree.cu",
-             "deflate_tpu/ops/pallas_tree.py:40", "tree", args_of("tree"),
-             tree.depths_kernel, tree.depths_plain)
-    # K2: every decode bucket
-    k2 = args_of("wave_stagea")
-    per_call(f"K2 decode_mark ({len(k2)} buckets, W64 "
-             f"{'/'.join(str(c[3]) for c in k2)})",
-             "deflate_tpu_torch/csrc/wave_stagea.cu",
-             "deflate_tpu/ops/wave_stagea.py:73", "wave_stagea", k2,
-             wave_stagea.decode_mark_kernel, wave_stagea.decode_mark_plain)
-    # K3: every routing call of the decode (4 per bucket)
-    k3 = args_of("wave_route")
-    per_call(f"K3 route ({len(k3)} calls)",
-             "deflate_tpu_torch/csrc/wave_route.cu",
-             "deflate_tpu/ops/wave_route.py:46", "wave_route", k3,
-             wave_route.route_kernel, wave_route.route_plain)
-    # K4: every fill call; the plain per-record loop on 8 blocks of each
-    k4 = args_of("wave_fill")
-    per_call(f"K4 fill_matches ({len(k4)} buckets; plain_ms on "
-             f"{FILL_PLAIN_BLOCKS} blocks of each)",
-             "deflate_tpu_torch/csrc/wave_fill.cu",
-             "deflate_tpu/ops/wave_fill.py:336", "wave_fill", k4,
-             wave_fill.fill_matches_kernel, wave_fill.fill_matches_plain,
-             lambda c: tuple(x[:FILL_PLAIN_BLOCKS] for x in c))
+    def prefix(c, n=PLAIN_PREFIX):
+        return tuple(x[:n] if isinstance(x, torch.Tensor) else x for x in c)
 
-    bad = [r[0] for r in results if r[4] != 0]
-    for name, _, _, mod, e, ms, pms in results:
-        log(f"{name}: max_abs_err {e}, kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms, launches {launches[mod]}")
+    check(f"K4 fill_matches ({len(calls['K4'])} buckets of phase A; "
+          f"plain_ms on the first {PLAIN_PREFIX} blocks of each)", "K4",
+          "deflate_tpu_torch/csrc/wave_fill.cu",
+          "deflate_tpu/ops/wave_fill.py:336",
+          wave_fill.fill_matches_kernel, wave_fill.fill_matches_plain,
+          calls["K4"], [prefix(c) for c in calls["K4"]],
+          bound_bytes=sum(fill_bytes(c) for c in calls["K4"]))
+    k5 = calls["K5"]
+    require(len(k5) == 1, f"K5 ran {len(k5)} times in phase B")
+    lit5, _, nm5, sizes5 = k5[0]
+
+    def k5_cmp(got, want, c):
+        # the prefix against the plain version, and beyond it every row
+        # without records (the stored rows) against its literal row,
+        # which is what the plain version returns for such a row
+        full = wave_fill.fill_matches_hist_kernel(*k5[0])
+        byte = torch.arange(wave_fill.ND, device=dev)[None, :]
+        keep = (nm5 == 0)[:, None] & (byte < sizes5[:, None])
+
+        def as_bytes(x):
+            return x.contiguous().view(torch.uint8).reshape(x.shape[0], -1)
+
+        return max(max_abs_err(torch, got, want),
+                   max_abs_err(torch, torch.where(keep, as_bytes(full), 0),
+                               torch.where(keep, as_bytes(lit5), 0)))
+
+    bare = (nm5 == 0).cpu().numpy()[:len(flags)]
+    check(f"K5 fill_matches_hist (phase B, {lit5.shape[0]} rows, "
+          f"{int(nm5.sum())} records; compared with and plain_ms on the "
+          f"first {PLAIN_PREFIX} rows ({flag_counts(flags[:PLAIN_PREFIX])}),"
+          f" and its {int(bare.sum())} rows without records "
+          f"({flag_counts(flags[bare])}) with their literal rows)", "K5",
+          "deflate_tpu_torch/csrc/wave_fill_hist.cu",
+          "deflate_tpu/ops/wave_fill.py:384",
+          wave_fill.fill_matches_hist_kernel,
+          wave_fill.fill_matches_hist_plain, k5,
+          [prefix(c) for c in k5], cmp=k5_cmp,
+          bound_bytes=sum(hist_bytes(c) for c in k5))
+
+    def k6_pick(kcalls):
+        """The blocks of K6_PICK (indices over all calls in order), as
+        one call per call that holds any of them."""
+        picked, base = [], 0
+        for words, start_w, bit0, avail, statics in kcalls:
+            B = start_w.shape[0]
+            ix = [i - base for i in K6_PICK if base <= i < base + B]
+            if ix:
+                ix = torch.tensor(ix, device=start_w.device)
+                picked.append((words, start_w[ix], bit0[ix], avail[ix],
+                               statics))
+            base += B
+        return picked
+
+    def btype(bit: int) -> int:
+        return (int.from_bytes(hstream[bit >> 3:(bit >> 3) + 2], "little")
+                >> ((bit & 7) + 1)) & 3
+
+    picked_types = [btype(hman.blocks[i][0]) for i in K6_PICK]
+    require(0 in picked_types and 2 in picked_types,
+            f"K6's compared blocks have block types {picked_types}")
+
+    def k6_cmp(got, want, c):
+        # status (produced, err, end bit) and rows; where err is set only
+        # err is part of the contract
+        (go, gs), (wo, ws) = got, want
+        ok = (ws[:, 1] == 0)[:, None]
+        return max(max_abs_err(torch, gs[:, 1], ws[:, 1]),
+                   max_abs_err(torch, torch.where(ok, gs, 0),
+                               torch.where(ok, ws, 0)),
+                   max_abs_err(torch, torch.where(ok, go, 0),
+                               torch.where(ok, wo, 0)))
+
+    def k6_bytes(c) -> int:
+        # the blocks' compressed bits in, statics and per-block words in,
+        # each block's produced bytes and its status out
+        _, status = block_inflate.inflate_blocks_kernel(*c)
+        bits = int((status[:, 2] - c[2]).clamp(min=0).sum())
+        return bits // 8 + nbytes(torch, c[1:]) \
+            + int(status[:, 0].clamp(min=0).sum()) + nbytes(torch, status)
+
+    k6 = calls["K6"]
+    check(f"K6 inflate_blocks (phase C, {k6_blocks} blocks; compared with "
+          f"and plain_ms on blocks {list(K6_PICK)}, of block types "
+          f"{picked_types})", "K6",
+          "deflate_tpu_torch/csrc/block_inflate.cu",
+          "deflate_tpu/ops/pallas_inflate.py:211",
+          block_inflate.inflate_blocks_kernel,
+          block_inflate.inflate_blocks_plain, k6,
+          k6_pick(k6), cmp=k6_cmp,
+          bound_bytes=sum(k6_bytes(c) for c in k6))
+
+    bad = [r["name"] for r in results if r["max_abs_err"] != 0]
+    for r in results:
+        log(f"{r['name']}: max_abs_err {r['max_abs_err']}, kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms, launches {r['launches']}")
     require(not bad, f"kernels disagree with their plain versions: {bad}")
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[mod], "max_abs_err": e, "ms": ms,
-         "plain_ms": pms}
-        for name, src, rep, mod, e, ms, pms in results]}), flush=True)
+    print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

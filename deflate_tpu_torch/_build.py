@@ -37,6 +37,9 @@ SIGNATURES = {
                                        I, I, I, I, P]},
     "wave_route": {"dt_route": [P, P, P, P, I, I, I, I, I, P]},
     "wave_fill": {"dt_fill_matches": [P, P, P, P, I, P]},
+    "wave_fill_hist": {"dt_fill_matches_hist": [P, P, P, P, P, I, P]},
+    "block_inflate": {"dt_inflate_blocks": [P, P, P, P, P, P, P,
+                                            I, I, P]},
 }
 
 _lock = threading.Lock()
@@ -107,6 +110,17 @@ def stream_ptr(device: torch.device) -> int:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA launch of {what} failed: error {err}")
+
+
+def torch_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device must exist.  The port's
+    entry points never move to the CPU on their own."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "deflate_tpu_torch: no CUDA device; pass device=\"cpu\" to run "
+            "the plain kernel versions on the CPU")
+    return dev
 
 
 def require_cuda(*tensors: torch.Tensor) -> torch.device:

@@ -8,9 +8,10 @@ device decode path is models/wave_decoder.py; this module is the
 always-available, dependency-free correctness anchor and the per-block
 fallback of runtime/manifest.decode_all.
 
-Copied from deflate_tpu/models/host_inflate.py, which imports no JAX,
-down to the raw-stream decoder that the port calls; the zlib container
-and streaming entry points come with the rest of the public API.
+Copied from deflate_tpu/models/host_inflate.py, which imports no JAX:
+the raw-stream decoder, the zlib container and Adler-32; the streaming
+block entry point and the consumed-bytes decode (for gzip members) come
+with the rest of the public API.
 """
 from __future__ import annotations
 
@@ -201,3 +202,40 @@ def _inflate_loop(br: _BitReader, max_out: int | None,
         if bfinal or single_block:
             return bytes(out[nhist:])
 
+
+
+def adler32(data: bytes) -> int:
+    # flat numpy formulation: s1 = 1 + sum(d); s2 = len + sum((len-i)*d)
+    d = np.frombuffer(data, dtype=np.uint8).astype(np.uint64)
+    n = len(d)
+    s1 = (1 + int(d.sum())) % 65521
+    s2 = (n + int((d * (n - np.arange(n, dtype=np.uint64))).sum())) % 65521
+    return (s2 << 16) | s1
+
+
+def zlib_unwrap(data: bytes) -> tuple[bytes, int]:
+    """Check a zlib (RFC 1950) header; return (the raw DEFLATE payload
+    with the trailer after it, the trailer's Adler-32)."""
+    if len(data) < 6:
+        raise InflateError("zlib stream too short")
+    cmf, flg = data[0], data[1]
+    if cmf & 0x0F != 8:
+        raise InflateError("unsupported compression method")
+    if (cmf * 256 + flg) % 31 != 0:
+        raise InflateError("bad zlib header check")
+    ofs = 6 if flg & 0x20 else 2   # FDICT (reference mis-parses this — B4)
+    return data[ofs:], int.from_bytes(data[-4:], "big")
+
+
+def check_adler32(out: bytes, stored: int) -> bytes:
+    """out, if its Adler-32 is `stored`; else InflateError."""
+    if adler32(out) != stored:
+        raise InflateError("adler32 mismatch")
+    return out
+
+
+def inflate_zlib(data: bytes) -> bytes:
+    """Unwrap a zlib (RFC 1950) container and decode the payload,
+    verifying its Adler-32."""
+    payload, stored = zlib_unwrap(data)
+    return check_adler32(inflate_raw(payload), stored)

@@ -1,11 +1,18 @@
 """Wavefront device decoder — the batch front end of ops/wave.py.
 
-Port of deflate_tpu/models/wave_decoder.py (self-contained streams with
-hints).  Decodes B independent blocks on a torch device: header parse
-and window extraction on the host, span bucketing (one bucket per window
-size), stored blocks as a plain window copy, stages A-F
-(ops/wave.wave_decode) and the match fill (kernel K4), then reassembly
-in block order.
+Port of deflate_tpu/models/wave_decoder.py.  Two entry points:
+
+- ``inflate_wave_device`` / ``inflate_wave``: B independent blocks with
+  hints (a manifest).  Header parse and window extraction on the host,
+  span bucketing (one bucket per window size), stored blocks as a plain
+  window copy, stages A-F (ops/wave.wave_decode) and the match fill
+  (kernel K4), then reassembly in block order.
+- ``skeleton_plan`` + ``inflate_wave_planned``: any raw DEFLATE stream
+  (foreign zlib/gzip output included).  The native skeleton walk cuts
+  it into <= 32 KiB virtual blocks with hints; stages A-F run on groups
+  of virtual blocks with synthetic stops, and the ordered match fill
+  with a 32 KiB cross-block history (kernel K5) resolves them in stream
+  order.
 
 The reference packs each bucket's operands into one buffer because every
 transfer cost a round trip on its TPU link; here each bucket's tensors
@@ -16,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deflate_tpu_torch._build import torch_device
 from deflate_tpu_torch.ops import wave as W
 from deflate_tpu_torch.ops import wave_fill as WF
 
@@ -102,16 +110,16 @@ def bucket_tensors(prep, sel, nw, hsel, sizes, device):
 
 
 def inflate_wave_device(stream: bytes, bit_offsets, out_sizes, hints=None,
-                        device=None):
-    """Decode blocks on `device` (torch.device; default CPU).  Returns
-    (words np [B, 8192] int32 in block order, produced np [B], err np
-    [B]).
+                        device="cuda"):
+    """Decode blocks on `device` (a torch device; the card by default,
+    "cpu" for the plain kernel versions).  Returns (words np [B, 8192]
+    int32 in block order, produced np [B], err np [B]).
 
     bit_offsets: absolute bit of each block's BFINAL bit (manifest);
     out_sizes: expected decoded size per block (manifest); hints:
     [B, >=W64] uint8 per-chunk entry phases, derived by a host walk when
     absent."""
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = torch_device(device)
     prep = _common_prep(stream, bit_offsets, out_sizes, hints)
     B, md, err = prep["B"], prep["md"], prep["err"]
     words = np.zeros((B, WF.OW), np.int32)
@@ -134,11 +142,130 @@ def inflate_wave_device(stream: bytes, bit_offsets, out_sizes, hints=None,
 
 
 def inflate_wave(stream: bytes, bit_offsets, out_sizes, hints=None,
-                 device=None) -> tuple[bytes, np.ndarray]:
+                 device="cuda") -> tuple[bytes, np.ndarray]:
     """Host-assembled convenience wrapper; returns (bytes, err[B])."""
     words, produced, err = inflate_wave_device(
         stream, bit_offsets, out_sizes, hints, device)
     w = np.asarray(words).view(np.uint8).reshape(len(produced), -1)
     out = b"".join(w[b, :produced[b]].tobytes()
                    for b in range(len(produced)))
+    return out, err
+
+
+# ====================== skeleton-planned decode ============================
+# The native skeleton walk (native/inflate.cpp dt_skeleton) cuts ANY
+# conforming raw DEFLATE stream — including foreign zlib/gzip output whose
+# blocks exceed 32 KiB or reference across block boundaries — into
+# <= 32 KiB VIRTUAL BLOCKS with wavefront decode hints.  Stages A-F then
+# run on all virtual blocks in parallel; only the walk and the ordered
+# match fill (kernel K5, 32 KiB history carry) are sequential.
+
+GROUP = 64                    # virtual blocks per wave_decode invocation
+
+
+def skeleton_plan(stream: bytes):
+    """Virtual-block plan for a bare raw DEFLATE stream, or None when the
+    stream is malformed."""
+    from deflate_tpu_torch import native as NAT
+
+    try:
+        return NAT.skeleton(bytes(stream))
+    except ValueError:
+        return None
+
+
+def _wave_group(nw, hints, sizes, md, stop_bit, stored, W64: int):
+    """One GROUP of planned virtual blocks through stages A-F, with
+    stored blocks passed through (their window IS their output) and
+    synthetic stops applied to cut blocks."""
+    n = nw.shape[0]
+    litw, r0, r1, nm, prod, e = W.wave_decode(
+        nw, hints, sizes, md, W64, stop_bit=stop_bit)
+    win = nw[:, :2 * W64 + 4]
+    if 2 * W64 + 4 < WF.OW:
+        win = torch.nn.functional.pad(win, (0, WF.OW - (2 * W64 + 4)))
+    sw = stored[:, None]
+    litw = torch.where(sw, win[:, :WF.OW], litw)
+    recs = torch.stack([r0, r1], 2).reshape(n, 2 * W.NM)
+    nm = torch.where(stored, 0, nm)
+    prod = torch.where(stored, sizes, prod)
+    e = torch.where(stored, 0, e)
+    return litw, recs, nm, prod, e
+
+
+def inflate_wave_planned(stream: bytes, plan, device="cuda"):
+    """Decode a skeleton-planned stream on the wavefront path, on
+    `device` (the card by default, "cpu" for the plain kernel versions).
+
+    Returns (bytes, err np[n_vb]), or (None, all-ones err) when a
+    virtual block's window exceeds the largest bucket.  Self-contained
+    plans (every virtual block a whole parent block, no history) take
+    the bucketed fast path (inflate_wave, K4); anything else takes the
+    ordered path: grouped A-F in parallel, one history-carrying match
+    fill (K5) over all virtual blocks in stream order, one pull to the
+    host.
+    """
+    dev = torch_device(device)
+    flags = np.asarray(plan["flags"], np.int64)
+    n = len(flags)
+    if n == 0:
+        return b"", np.zeros(0, np.int64)
+    whole = (flags & 2) > 0
+    needs_hist = (flags & 4) > 0
+    if whole.all() and not needs_hist.any():
+        return inflate_wave(stream, plan["parent_bit"], plan["out_len"],
+                            plan["hints"], device=dev)
+
+    out_len = np.asarray(plan["out_len"], np.int64)
+    span = np.asarray(plan["span_bits"], np.int64)
+    stored = (flags & 1) > 0
+    # window size: huffman vbs need the span (+1 bit for the synthetic
+    # stop position); stored vbs need their payload bytes in-window
+    need = np.where(stored, -(-out_len * 8 // 64), -(-(span + 1) // 64))
+    W64 = next((b for b in BUCKETS if b >= int(need.max())), None)
+    if W64 is None:
+        return None, np.ones(n, np.int64)
+
+    md = W.parse_headers_host(stream, plan["parent_bit"])
+    nw = W.prepare_windows(stream, plan["start_bit"], W64)
+    hints = np.full((n, W64), W.HINT_NONE, np.uint8)
+    hav = min(W64, plan["hints"].shape[1])
+    hints[:, :hav] = plan["hints"][:, :hav]
+    stop = np.where(whole | stored, -1, span).astype(np.int32)
+
+    npad = -(-n // GROUP) * GROUP
+
+    def pad(a, fill=0):
+        if len(a) == n and npad != n:
+            return np.concatenate(
+                [a, np.full((npad - n,) + a.shape[1:], fill, a.dtype)])
+        return a
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    nw_p = pad(nw)
+    hints_p = pad(hints, W.HINT_NONE).astype(np.int32)
+    sizes_p = pad(out_len.astype(np.int32))
+    stop_p = pad(stop, -1)
+    stored_p = pad(stored)
+    stored_p[n:] = True                     # padding rows pass through
+    md_p = {k: pad(np.asarray(md[k]).astype(np.int32))
+            for k in MD_DEVICE_KEYS}
+
+    parts = []
+    for g0 in range(0, npad, GROUP):
+        sl = slice(g0, g0 + GROUP)
+        parts.append(_wave_group(
+            t(nw_p[sl]), t(hints_p[sl]), t(sizes_p[sl]),
+            {k: t(v[sl]) for k, v in md_p.items()}, t(stop_p[sl]),
+            t(stored_p[sl]), W64))
+    lit, recs, nm, prod, err = (torch.cat(x) for x in zip(*parts))
+    filled = WF.fill_matches_hist(lit, recs, nm, t(sizes_p))
+
+    w = filled[:n].cpu().numpy().view(np.uint8).reshape(n, -1)
+    produced = prod[:n].cpu().numpy()
+    err = err[:n].cpu().numpy().astype(np.int64)
+    err |= (produced != out_len).astype(np.int64)
+    out = b"".join(w[b, :out_len[b]].tobytes() for b in range(n))
     return out, err

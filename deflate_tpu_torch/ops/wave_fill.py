@@ -1,4 +1,5 @@
-"""Kernel K4: LZ77 match fill of the wavefront decoder (csrc/wave_fill.cu).
+"""Kernels K4 and K5: LZ77 match fill of the wavefront decoder
+(csrc/wave_fill.cu, csrc/wave_fill_hist.cu).
 
 Replaces deflate_tpu/ops/wave_fill.py (`_kernel`, wrapper
 `fill_matches`).  After stage F has placed every literal byte, each
@@ -15,6 +16,12 @@ opos - r1.  A byte-sequential copy equals the periodic extension
 out[opos + k] = out[src + k % dist], whose sources all precede opos; the
 plain version and the kernel both compute that, skip records with
 dist <= 0 and drop bytes past the block's 32 KiB.
+
+K5 (fill_matches_hist, replacing `_kernel_seq`, wrapper
+`fill_matches_hist`) fills the virtual blocks of a foreign-stream plan
+in stream order: records arrive RAW, interleaved (opos | len3<<16, dist)
+as models/wave_decoder._wave_group stacks them, and a record may reach
+up to 32 KiB back into the output of any earlier row.
 """
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ from deflate_tpu_torch.ops.wave import ND, NM
 from deflate_tpu_torch.utils.bits import I32, srl
 
 OW = ND // 4                 # output words per block
-launches = 0
+launches = 0                 # K4 launches
+hist_launches = 0            # K5 launches
 
 
 def pack_fill_recs(rec0, rec1):
@@ -99,3 +107,69 @@ def fill_matches(litwords, recs, nmatch):
     CUDA tensors run K4; CPU tensors the plain version."""
     fn = fill_matches_kernel if litwords.is_cuda else fill_matches_plain
     return fn(litwords, recs, nmatch)
+
+
+def fill_matches_hist_plain(litwords, recs, nmatch, sizes):
+    """Per-record sequential copy over rows in stream order with a 32 KiB
+    history: the window is [last 32 KiB of output | current row], zeros
+    before the first output byte, and slides by sizes[b] bytes after row
+    b.  A record at row byte opos copies len3 + 3 bytes from dist bytes
+    back (clamped to the window's first byte, as the reference clamps);
+    bytes past the row's 32 KiB are dropped.  Returns int32 [B, OW]; row
+    b is valid up to sizes[b] bytes."""
+    B = litwords.shape[0]
+    dev = litwords.device
+    rows = litwords.contiguous().view(torch.uint8).reshape(B, ND)
+    win = torch.zeros(2 * ND, dtype=torch.uint8, device=dev)
+    out = torch.empty((B, ND), dtype=torch.uint8, device=dev)
+    for b, (nm, size) in enumerate(zip(nmatch.tolist(), sizes.tolist())):
+        win[ND:] = rows[b]
+        nm = min(max(nm, 0), NM)
+        rb = recs[b, :2 * nm].tolist()
+        for m in range(nm):
+            r0, dist = rb[2 * m], rb[2 * m + 1]
+            opos = r0 & 0xFFFF
+            p = ND + opos
+            src = max(p - dist, 0)
+            n = min(((r0 >> 16) & 0xFFFF) + 3, ND - opos)
+            if p - src <= 0 or n <= 0:
+                continue
+            k = torch.arange(n, device=dev)
+            win[p:p + n] = win[src + k % (p - src)]
+        out[b] = win[ND:]
+        s = min(max(size, 0), ND)
+        win[:ND] = win[s:s + ND].clone()
+    return out.view(I32).reshape(B, OW)
+
+
+def fill_matches_hist_kernel(litwords, recs, nmatch, sizes):
+    """K5 on the card: same contract as fill_matches_hist_plain."""
+    global hist_launches
+    litwords = litwords.to(I32).contiguous()
+    recs = recs.to(I32).contiguous()
+    nmatch = nmatch.to(I32).contiguous()
+    sizes = sizes.to(I32).contiguous()
+    dev = _build.require_cuda(litwords, recs, nmatch, sizes)
+    B = litwords.shape[0]
+    if litwords.shape != (B, OW) or recs.shape != (B, 2 * NM) \
+            or nmatch.shape != (B,) or sizes.shape != (B,):
+        raise ValueError("hist fill operands must be litwords [B, 8192], "
+                         "raw records [B, 2*NM], nmatch [B], sizes [B]")
+    out = torch.empty_like(litwords)
+    if B:
+        err = _build.lib("wave_fill_hist").dt_fill_matches_hist(
+            litwords.data_ptr(), recs.data_ptr(), nmatch.data_ptr(),
+            sizes.data_ptr(), out.data_ptr(), B, _build.stream_ptr(dev))
+        _build.check(err, "dt_fill_matches_hist")
+        hist_launches += 1
+    return out
+
+
+def fill_matches_hist(litwords, recs, nmatch, sizes):
+    """litwords int32 [B, OW] in stream order, recs int32 [B, 2*NM] raw
+    interleaved (opos | len3<<16, dist), nmatch [B], sizes [B] output
+    bytes per row.  Returns int32 [B, OW].  CUDA tensors run K5; CPU
+    tensors the plain version."""
+    fn = (fill_matches_hist_kernel if litwords.is_cuda
+          else fill_matches_hist_plain)
+    return fn(litwords, recs, nmatch, sizes)

@@ -12,6 +12,11 @@ block independently.
 
   compress_with_manifest(data, level=2, device=dev) -> (stream, Manifest)
   decode_all(stream, man, device=dev) -> bytes
+
+``device`` is a torch device and defaults to the card ("cuda"); without
+one these raise.  device="cpu" runs the same torch path with the plain
+kernel versions (the tests do).  decode_all(device=None) is the host
+decoder, the reference's device=False.
 """
 from __future__ import annotations
 
@@ -195,17 +200,19 @@ def _as_u8(data) -> np.ndarray:
 
 
 def compress_with_manifest(data, level: int = 2, hints: bool = True,
-                           device=None):
-    """Compress on `device` (a torch.device; default CPU) and return
-    (stream bytes, Manifest).  One encode produces the stream, the
-    per-block spans and the wavefront decode hints."""
+                           device="cuda"):
+    """Compress on `device` (a torch device: the card by default, "cpu"
+    for the plain kernel versions) and return (stream bytes, Manifest).
+    One encode produces the stream, the per-block spans and the
+    wavefront decode hints."""
     import torch
 
+    from deflate_tpu_torch._build import torch_device
     from deflate_tpu_torch.models import encoder as E
     from deflate_tpu_torch.ops.wave import HINT_NONE
     from deflate_tpu_torch.runtime import stitch as S
 
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = torch_device(device)
     buf = _as_u8(data)
     nblocks = max(1, -(-len(buf) // BLOCK_SIZE))
     blocks = np.zeros((nblocks, BLOCK_SIZE), np.uint8)
@@ -237,13 +244,16 @@ def compress_with_manifest(data, level: int = 2, hints: bool = True,
     return stream, man
 
 
-def decode_all(stream: bytes, man: Manifest, device=None) -> bytes:
-    """Decode an entire manifest-indexed stream.
+def decode_all(stream: bytes, man: Manifest, device="cuda") -> bytes:
+    """Decode an entire manifest-indexed stream on `device` (a torch
+    device: the card by default, "cpu" for the plain kernel versions).
 
-    With a `device` and a manifest that carries hints, the wavefront
-    decoder (models/wave_decoder.py) decodes every block there; blocks it
-    flags fall back to the host decoder one by one.  Without a device or
-    without hints, every block decodes on the host."""
+    With hints, the wavefront decoder (models/wave_decoder.py) decodes
+    every block; blocks it flags fall back to the host decoder one by
+    one.  Without hints, kernel K6 (models/block_decoder.py) decodes all
+    blocks; if it flags any, the whole stream decodes on the host.
+    device=None decodes every block on the host (the reference's
+    device=False)."""
     from deflate_tpu_torch.models import host_inflate as HI
 
     if device is not None and man.hints is not None:
@@ -262,6 +272,13 @@ def decode_all(stream: bytes, man: Manifest, device=None) -> bytes:
             else:
                 parts.append(w[i, :olen].tobytes())
         return b"".join(parts)
+    if device is not None:
+        from deflate_tpu_torch.models import block_decoder as BD
+
+        try:
+            return BD.inflate_manifest(stream, man.blocks, device=device)
+        except BD.PallasDecodeError:
+            pass
     out = bytearray()
     for bit_off, _, _ in man.blocks:
         out += HI.inflate_raw(stream, start_bit=bit_off, single_block=True)

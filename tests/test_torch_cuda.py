@@ -5,10 +5,14 @@ absent:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -p no:randomly -o addopts=""
 """
+import zlib
+
 import numpy as np
 import pytest
 import torch
 
+import deflate_tpu_torch as D
+from deflate_tpu_torch.ops import block_inflate as BI
 from deflate_tpu_torch.ops import huffman as H
 from deflate_tpu_torch.ops import tree
 from deflate_tpu_torch.ops import wave as W
@@ -16,8 +20,9 @@ from deflate_tpu_torch.ops import wave_fill as WF
 from deflate_tpu_torch.ops import wave_route as WR
 from deflate_tpu_torch.ops import wave_stagea as WS
 from deflate_tpu_torch.runtime import manifest as M
-from torch_helpers import (assert_same, corpus, cuda_device,  # noqa: F401
-                           fill_case, monotone_instance)
+from torch_helpers import (NM, assert_same, corpus,  # noqa: F401
+                           cuda_device, fill_case, hist_case,
+                           monotone_instance)
 
 pytestmark = pytest.mark.cuda
 
@@ -39,7 +44,7 @@ def test_k1_kernel_matches_plain(cuda_device):
 
 def test_k2_kernel_matches_plain(cuda_device):
     data = corpus(4, seed=21)
-    stream, man = M.compress_with_manifest(data, level=2)
+    stream, man = M.compress_with_manifest(data, level=2, device="cpu")
     offs = [b[0] for b in man.blocks]
     md = W.parse_headers_host(stream, offs)
     huff = [i for i in range(len(offs)) if md["btype"][i] != 0]
@@ -89,9 +94,58 @@ def test_k4_kernel_matches_plain(cuda_device):
 
 def test_main_path_on_card_equals_cpu(cuda_device):
     data = corpus(4, seed=33)[:4 * 32768 - 77]
-    s_cpu, m_cpu = M.compress_with_manifest(data, level=2)
+    s_cpu, m_cpu = M.compress_with_manifest(data, level=2, device="cpu")
     s_gpu, m_gpu = M.compress_with_manifest(data, level=2,
                                             device=cuda_device)
     assert s_gpu == s_cpu
     assert m_gpu.to_bytes() == m_cpu.to_bytes()
     assert M.decode_all(s_gpu, m_gpu, device=cuda_device) == data
+
+
+def test_k5_kernel_matches_plain(cuda_device):
+    lit, rec0, rec1, nmatch, sizes = hist_case()
+    recs = np.stack([rec0, rec1], 2).reshape(len(sizes), 2 * NM)
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in (lit, recs, nmatch, sizes)]
+    got = WF.fill_matches_hist_kernel(*args)
+    want = WF.fill_matches_hist_plain(*args)
+    torch.cuda.synchronize()
+    assert_same(got, want, "K5")
+
+
+def test_k6_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(8)
+    data = corpus(3, seed=61)
+    stream, man = M.compress_with_manifest(data, level=2, hints=False,
+                                           device="cpu")
+    c = zlib.compressobj(9, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)
+    fixed = c.compress(b"hello hello hello world" * 40) + c.flush()
+    bad = bytearray(stream)
+    bad[len(bad) // 2] ^= 0x10
+    for st, offs in ((stream, [b[0] for b in man.blocks]), (fixed, [0]),
+                     (bytes(bad), [b[0] for b in man.blocks]),
+                     (rng.integers(0, 256, 3000, dtype=np.uint8).tobytes(),
+                      [0, 8, 801])):
+        ops = [torch.from_numpy(x).to(cuda_device)
+               for x in (*BI.prepare_blocks(st, offs), BI.make_statics())]
+        go, gs = BI.inflate_blocks_kernel(*ops)
+        wo, ws = BI.inflate_blocks_plain(*ops)
+        torch.cuda.synchronize()
+        assert_same(gs[:, 1], ws[:, 1], "K6 err")
+        ok = (ws[:, 1] == 0)[:, None]
+        assert_same(torch.where(ok, gs, 0), torch.where(ok, ws, 0),
+                    "K6 status")
+        assert_same(torch.where(ok, go, 0), torch.where(ok, wo, 0),
+                    "K6 rows")
+
+
+def test_foreign_and_hintless_paths_on_card(cuda_device):
+    data = corpus(3, seed=62)
+    raw = zlib.compress(data, 6)[2:-4]
+    st = {}
+    assert D.decompress(raw, len(data), device=cuda_device,
+                        force_device=True, stats=st) == data
+    assert st["device_path"] == "wave"
+    s, m = M.compress_with_manifest(data, level=2, hints=False,
+                                    device=cuda_device)
+    assert M.decode_all(s, m, device=cuda_device) == data

@@ -16,7 +16,7 @@ from torch_helpers import corpus
 
 
 def _encoded(data: bytes):
-    stream, man = M.compress_with_manifest(data, level=2)
+    stream, man = M.compress_with_manifest(data, level=2, device="cpu")
     return (stream, [b[0] for b in man.blocks], [b[2] for b in man.blocks],
             man.hint_array(), data)
 
@@ -29,7 +29,8 @@ def _ccap():
 def _compare(stream, offs, sizes, hints):
     jw, jp, je = JWD.inflate_wave_device(stream, offs, sizes, hints,
                                          interpret=True)
-    tw, tp, te = WD.inflate_wave_device(stream, offs, sizes, hints)
+    tw, tp, te = WD.inflate_wave_device(stream, offs, sizes, hints,
+                                        device="cpu")
     assert (tw == np.asarray(jw)).all()
     assert (tp == np.asarray(jp)).all()
     assert (te == np.asarray(je)).all()
@@ -55,13 +56,13 @@ def test_inflate_wave_device_identical(make):
 @pytest.mark.parametrize("nblocks", [1, 3, 4])
 def test_decode_all_roundtrip(nblocks):
     data = corpus(nblocks, seed=40 + nblocks)[:nblocks * 32768 - 1234]
-    stream, man = M.compress_with_manifest(data, level=2)
+    stream, man = M.compress_with_manifest(data, level=2, device="cpu")
     assert zlib.decompress(stream, -15) == data
     assert M.decode_all(stream, man, device="cpu") == data
-    assert M.decode_all(stream, man) == data            # host path
+    assert M.decode_all(stream, man, device=None) == data   # host path
     _, produced, err = WD.inflate_wave_device(
         stream, [b[0] for b in man.blocks], [b[2] for b in man.blocks],
-        man.hint_array())
+        man.hint_array(), device="cpu")
     assert not err.any()
     assert list(produced) == [b[2] for b in man.blocks]
 
@@ -75,6 +76,6 @@ def test_decode_all_falls_back_on_flagged_block():
     man = M.Manifest(32768, 8 * len(stream), [(0, 8 * len(stream),
                                                 len(data))], [hints])
     _, _, err = WD.inflate_wave_device(stream, [0], [len(data)],
-                                       man.hint_array())
+                                       man.hint_array(), device="cpu")
     assert err.all()
     assert M.decode_all(stream, man, device="cpu") == data

@@ -34,7 +34,7 @@ def reference():
 def test_stream_and_manifest_identical(reference, case):
     data, level = CASES[case]
     want_s, want_m = reference[case]
-    got_s, got_m = M.compress_with_manifest(data, level=level)
+    got_s, got_m = M.compress_with_manifest(data, level=level, device="cpu")
     assert got_s == want_s
     assert got_m.blocks == want_m.blocks
     assert got_m.hints == want_m.hints
@@ -55,4 +55,4 @@ def test_manifests_read_across_packages(reference):
 
 def test_level3_not_ported():
     with pytest.raises(NotImplementedError):
-        M.compress_with_manifest(b"abc" * 100, level=3)
+        M.compress_with_manifest(b"abc" * 100, level=3, device="cpu")

@@ -8,6 +8,7 @@ import sys
 from torch_helpers import ROOT
 
 MODULES = ("deflate_tpu_torch", "deflate_tpu_torch._build",
+           "deflate_tpu_torch.native",
            "deflate_tpu_torch.utils.bits", "deflate_tpu_torch.utils.tables",
            "deflate_tpu_torch.ops.huffman", "deflate_tpu_torch.ops.tree",
            "deflate_tpu_torch.ops.header", "deflate_tpu_torch.ops.lz77",
@@ -15,9 +16,11 @@ MODULES = ("deflate_tpu_torch", "deflate_tpu_torch._build",
            "deflate_tpu_torch.ops.wave_stagea",
            "deflate_tpu_torch.ops.wave_route",
            "deflate_tpu_torch.ops.wave_fill",
+           "deflate_tpu_torch.ops.block_inflate",
            "deflate_tpu_torch.models.encoder",
            "deflate_tpu_torch.models.wave_decoder",
            "deflate_tpu_torch.models.host_inflate",
+           "deflate_tpu_torch.models.block_decoder",
            "deflate_tpu_torch.runtime.manifest",
            "deflate_tpu_torch.runtime.stitch")
 

@@ -26,7 +26,7 @@ from torch_helpers import (assert_same, corpus, fill_case,
 def stream4():
     """A 4-block level-2 stream (text, repeats, words, stored random)."""
     data = corpus(4, seed=21)
-    stream, man = M.compress_with_manifest(data, level=2)
+    stream, man = M.compress_with_manifest(data, level=2, device="cpu")
     return stream, [b[0] for b in man.blocks], man
 
 
@@ -93,7 +93,7 @@ def test_k2_plain_matches_decode_mark_pallas():
     rng = np.random.default_rng(5)
     data = (rng.integers(97, 123, 2600, dtype=np.uint8).tobytes()
             + np.tile(rng.integers(0, 256, 53, dtype=np.uint8), 40).tobytes())
-    stream, man = M.compress_with_manifest(data, level=2)
+    stream, man = M.compress_with_manifest(data, level=2, device="cpu")
     offs = [b[0] for b in man.blocks]
     W64 = 128
     nw, hs, md = _stage_ab_inputs(stream, offs, W64, man.hint_array())

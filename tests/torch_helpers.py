@@ -102,3 +102,48 @@ def fill_case(B):
             rec1[b, m] = d
         nmatch[b] = len(sub)
     return lit, rec0, rec1, nmatch
+
+
+def hist_case():
+    """Rows of a foreign-stream plan in stream order for the ordered fill
+    with history (K5): row 0 holds every distance class (fill_case),
+    then short rows (300, 5, 7, 0, 3 bytes), a row whose first record
+    reaches back across four of them, and a row with a match at the
+    32 KiB maximum distance.  Returns (litwords [B, 8192], rec0, rec1
+    [B, NM] raw records, nmatch [B], sizes [B]), int32."""
+    rng = np.random.default_rng(17)
+    sizes = np.array([32768, 300, 5, 7, 0, 3, 1001, 20001], np.int32)
+    B = len(sizes)
+    lit = rng.integers(-2**31, 2**31, (B, 8192), dtype=np.int64)
+    lit = lit.astype(np.int32)
+    rec0 = np.zeros((B, NM), np.int32)
+    rec1 = np.zeros((B, NM), np.int32)
+    nmatch = np.zeros(B, np.int32)
+    _, r0, r1, nm = fill_case(1)
+    rec0[0], rec1[0], nmatch[0] = r0[0], r1[0], nm[0]
+    before = 0                       # output bytes before the row
+    for b in range(1, B):
+        before += int(sizes[b - 1])
+        recs = []
+        o = 0
+        if b == 6:                   # back across rows 5, 4, 3, 2 into 1
+            recs.append((0, 30, 25))
+            o = 30
+        if b == 7:                   # the largest distance
+            recs.append((0, 258, 32768))
+            o = 258
+        while True:
+            o += int(rng.integers(0, 4))             # literal gap
+            ln = int(rng.integers(3, 40))
+            if o + ln > sizes[b]:
+                break
+            dmax = min(32768, before + o)
+            d = int(rng.choice([1, 2, 3, int(rng.integers(1, dmax + 1)),
+                                dmax]))
+            recs.append((o, ln, min(d, dmax)))
+            o += ln
+        for m, (o_, ln, d) in enumerate(recs):
+            rec0[b, m] = o_ | ((ln - 3) << 16)
+            rec1[b, m] = d
+        nmatch[b] = len(recs)
+    return lit, rec0, rec1, nmatch, sizes

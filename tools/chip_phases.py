@@ -1,11 +1,13 @@
-"""Where the main path's time goes on one NVIDIA card.
+"""Where each decode path's time goes on one NVIDIA card.
 
     python3 tools/chip_phases.py
 
-Encodes and decodes chip_smoke.py's 8 MiB corpus twice with timers
-around each phase (each timer synchronises the card before and after,
-so phases do not overlap), prints the second repetition's breakdown,
-then runs each half once more under torch.profiler without the timers
+Runs chip_smoke.py's 8 MiB corpus through four paths twice — encode,
+hinted decode, foreign-stream decode (python zlib level 6, forced onto
+the card) and hintless decode — with timers around each phase (each
+timer synchronises the card before and after, so phases do not
+overlap), prints each path's breakdown from the second repetition,
+then runs each path once more under torch.profiler without the timers
 and prints its device kernel time against wall time (the busy share).
 Needs a CUDA device.
 """
@@ -17,16 +19,20 @@ import subprocess
 import sys
 import time
 
+import zlib
+
 import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+import deflate_tpu_torch as D  # noqa: E402
 from chip_smoke import make_corpus  # noqa: E402
 from deflate_tpu_torch.models import encoder as E  # noqa: E402
 from deflate_tpu_torch.models import wave_decoder as WD  # noqa: E402
 from deflate_tpu_torch.ops import bitmerge as BM  # noqa: E402
+from deflate_tpu_torch.ops import block_inflate as BI  # noqa: E402
 from deflate_tpu_torch.ops import huffman as H  # noqa: E402
 from deflate_tpu_torch.ops import lz77 as LZ  # noqa: E402
 from deflate_tpu_torch.ops import wave as W  # noqa: E402
@@ -43,7 +49,9 @@ PHASES = [(E, "_encode"), (LZ, "find_matches"), (LZ, "greedy_parse"),
           (WD, "wave_decode_filled"), (W, "wave_decode"),
           (WS, "decode_mark"), (WR, "route"), (W, "resolve_litval"),
           (W, "merge_match_runs"), (WF, "pack_fill_recs"),
-          (WF, "fill_matches")]
+          (WF, "fill_matches"), (WD, "skeleton_plan"),
+          (WD, "_wave_group"), (WF, "fill_matches_hist"),
+          (BI, "prepare_blocks"), (BI, "inflate_blocks_op")]
 
 
 def main() -> int:
@@ -76,34 +84,53 @@ def main() -> int:
         originals[(mod, name)] = fn
         setattr(mod, name, wrapper)
 
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    raw = co.compress(data) + co.flush()
+    hs, hm = M.compress_with_manifest(data, hints=False, device=dev)
+    state = {}
+
+    def encode():
+        state["s"], state["m"] = M.compress_with_manifest(data, device=dev)
+        return None
+
+    paths = {
+        "encode": encode,
+        "decode": lambda: M.decode_all(state["s"], state["m"], device=dev),
+        "foreign decode": lambda: D.decompress(
+            raw, len(data), device=dev, force_device=True),
+        "hintless decode": lambda: M.decode_all(hs, hm, device=dev),
+    }
+
     for mod, name in PHASES:
         timed(mod, name)
     for rep in range(2):
-        spent.clear()
-        calls.clear()
-        t0 = time.perf_counter()
-        stream, man = M.compress_with_manifest(data, device=dev)
-        t1 = time.perf_counter()
-        if M.decode_all(stream, man, device=dev) != data:
-            raise RuntimeError("decode mismatch")
-        t2 = time.perf_counter()
-        print(f"rep {rep}: encode {t1 - t0:.3f} s, decode {t2 - t1:.3f} s")
-    for label, sec in sorted(spent.items(), key=lambda kv: -kv[1]):
-        print(f"  {label:32s} {sec * 1e3:9.1f} ms  x{calls[label]}")
+        report = []
+        for what, fn in paths.items():
+            spent.clear()
+            calls.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if out is not None and out != data:
+                raise RuntimeError(f"{what} mismatch")
+            report.append((what, wall, dict(spent), dict(calls)))
+    for what, wall, sp, cl in report:
+        print(f"{what}: {wall * 1e3:.1f} ms")
+        for label, sec in sorted(sp.items(), key=lambda kv: -kv[1]):
+            print(f"  {label:32s} {sec * 1e3:9.1f} ms  x{cl[label]}")
     for (mod, name), fn in originals.items():
         setattr(mod, name, fn)
 
     from torch.profiler import ProfilerActivity, profile
 
-    for what in ("encode", "decode"):
+    for what, fn in paths.items():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            if what == "encode":
-                stream, man = M.compress_with_manifest(data, device=dev)
-            else:
-                M.decode_all(stream, man, device=dev)
+            fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kern = [e for e in prof.events()
