@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from deflate_tpu_torch/csrc/ (one nvcc per
-source, all at once) and the native host walk (g++), then drives three
+source, all at once) and the native host walk (g++), then drives five
 paths on an 8 MiB mixed corpus (256 blocks of 32 KiB), each with every
 kernel count set to 0 just before it and read just after:
 
@@ -15,13 +15,21 @@ kernel count set to 0 just before it and read just after:
      call without force_device, which the dispatcher redirects to the
      host decoder;
   C  ``compress_with_manifest(hints=False)``, then ``decode_all`` on the
-     card: every block through the full block inflate (K6).
+     card: every block through the full block inflate (K6);
+  D  level 3: ``compress_with_manifest(level=3)`` (the default merge
+     emission, K1), then ``encoder.encode_batch_with_hints(level=3,
+     pack="kernel")`` on the same blocks (packet fusion, compaction on
+     K3, placement on K7); stream, manifest and hints must be identical;
+  E  hinted ``decode_all`` of D's stream with DT_STAGEAB_PALLAS=0: stage
+     A at every bit phase on K8, the mark automaton in torch, K3, K4 —
+     and K2 not at all.
 
 Each phase checks its output against the input and that its kernels
 launched.  Then each kernel is held against its plain PyTorch version on
 the card, on operands its phase gave it, and both are timed with CUDA
 events; the line of kernel results adds each kernel's bound (bytes moved
-over 3.35 TB/s) and, for K3, a PyTorch scatter of the same routing.
+over 3.35 TB/s) and, for K3 and K7, one PyTorch scatter of the same
+work.
 
 Prints the card (nvidia-smi name and power limit), MB/s of every phase,
 one JSON line of kernel results, and as its last line
@@ -30,7 +38,9 @@ without a CUDA device or when any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -138,9 +148,11 @@ def main() -> int:
     from deflate_tpu_torch import _build, native
     from deflate_tpu_torch.models import block_decoder as BD
     from deflate_tpu_torch.models import wave_decoder as WD
-    from deflate_tpu_torch.ops import block_inflate, tree, wave_fill, \
-        wave_route, wave_stagea
+    from deflate_tpu_torch.models import encoder as E
+    from deflate_tpu_torch.ops import block_inflate, pack, tree, \
+        wave_fill, wave_route, wave_stagea
     from deflate_tpu_torch.runtime import manifest as M
+    from deflate_tpu_torch.utils.bits import wrap32
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -163,6 +175,8 @@ def main() -> int:
         "K4": (wave_fill, "fill_matches_kernel", "launches"),
         "K5": (wave_fill, "fill_matches_hist_kernel", "hist_launches"),
         "K6": (block_inflate, "inflate_blocks_kernel", "launches"),
+        "K7": (pack, "pack_blocks_kernel", "launches"),
+        "K8": (wave_stagea, "decode_positions_kernel", "positions_launches"),
     }
 
     def run_phase(keys, fn):
@@ -283,6 +297,70 @@ def main() -> int:
     print(f"C hintless device decode: {len(hman.blocks)} blocks in "
           f"{lc['K6']} K6 launches, {t_c:.3f} s = {mb / t_c:.2f} MB/s",
           flush=True)
+
+    # ---- phase D: level 3 through the merge and kernel-pack backends ----
+    def encode_l3(pack_backend):
+        blocks, blens = M.split_blocks(data)
+        n = len(blens)
+        out = E.encode_batch_with_hints(
+            torch.from_numpy(blocks).to(dev), torch.from_numpy(blens).to(dev),
+            torch.ones(n, dtype=torch.bool, device=dev), n - 1, 3, 0,
+            pack=pack_backend)
+        return M.manifest_of(*out, blens)
+
+    ws3, wm3 = M.compress_with_manifest(data, level=3, device=dev)
+    require(encode_l3("kernel")[0] == ws3, "warm-up level-3 kernel pack")
+    (s3, m3), t_d, ld_merge, _ = run_phase(
+        ["K1"], lambda: M.compress_with_manifest(data, level=3, device=dev))
+    (ks3, km3), t_dk, ld, cd = run_phase(["K1", "K3", "K7"],
+                                         lambda: encode_l3("kernel"))
+    launches["K7"] = ld["K7"]
+    calls["K7"] = cd["K7"]
+    require(zlib.decompress(s3, -15) == data, "zlib rejects the L3 stream")
+    require(ks3 == s3, "level-3 streams of the two backends differ")
+    require(km3.blocks == m3.blocks and km3.hints == m3.hints
+            and km3.to_bytes() == m3.to_bytes(),
+            "level-3 offsets or hints of the two backends differ")
+    print(f"D level-3 encode: {len(data)} bytes -> {len(s3)} bytes (ratio "
+          f"{len(s3) / len(data):.4f}); merge backend {t_d:.3f} s = "
+          f"{mb / t_d:.2f} MB/s (K1 {ld_merge['K1']}); kernel pack "
+          f"{t_dk:.3f} s = {mb / t_dk:.2f} MB/s (K1 {ld['K1']}, K3 "
+          f"{ld['K3']}, K7 {ld['K7']} launches); streams, offsets and "
+          f"hints identical", flush=True)
+
+    # ---- phase E: D's stream through the split stage A (K8) ------------
+    @contextlib.contextmanager
+    def split_stage_a():
+        prev = os.environ.get("DT_STAGEAB_PALLAS")
+        os.environ["DT_STAGEAB_PALLAS"] = "0"
+        try:
+            yield
+        finally:
+            if prev is None:
+                del os.environ["DT_STAGEAB_PALLAS"]
+            else:
+                os.environ["DT_STAGEAB_PALLAS"] = prev
+
+    with split_stage_a():
+        require(M.decode_all(s3, m3, device=dev) == data,
+                "warm-up split decode")
+        out, t_e, le, ce = run_phase(
+            ["K3", "K4", "K8"], lambda: M.decode_all(s3, m3, device=dev))
+        k2_in_e = wave_stagea.launches
+        _, produced, err = WD.inflate_wave_device(
+            s3, [b[0] for b in m3.blocks], [b[2] for b in m3.blocks],
+            m3.hint_array(), device=dev)
+    launches["K8"] = le["K8"]
+    calls["K8"] = ce["K8"]
+    require(out == data, "split decode differs from the corpus")
+    require(k2_in_e == 0, f"K2 launched {k2_in_e} times on the split route")
+    fallback = int(np.count_nonzero(
+        err | (produced != np.asarray([b[2] for b in m3.blocks]))))
+    require(fallback == 0, f"{fallback} L3 blocks took the host fallback")
+    print(f"E split stage-A decode (DT_STAGEAB_PALLAS=0): {len(data)} bytes "
+          f"in {t_e:.3f} s = {mb / t_e:.2f} MB/s; K8 {le['K8']}, K3 "
+          f"{le['K3']}, K4 {le['K4']}, K2 {k2_in_e} launches, 0 blocks on "
+          f"the host", flush=True)
 
     # ---- each kernel against its plain version, phase operands ---------
     def timed(fn, reps: int = KERNEL_REPS) -> float:
@@ -450,6 +528,33 @@ def main() -> int:
           block_inflate.inflate_blocks_plain, k6,
           k6_pick(k6), cmp=k6_cmp,
           bound_bytes=sum(k6_bytes(c) for c in k6))
+
+    def k7_library_ms(c) -> float:
+        """One torch scatter_add_ of the packets' precomputed words."""
+        idx, vals = pack.packet_words(*c)
+        vals = wrap32(vals)
+        dest = torch.zeros((idx.shape[0], pack.OUTW + 1), dtype=torch.int32,
+                           device=dev)
+        return timed(lambda: dest.scatter_add_(1, idx, vals))
+
+    k7 = calls["K7"]
+    require(len(k7) == 1, f"K7 ran {len(k7)} times in phase D")
+    npackets = int(k7[0][0].clamp(0, pack.NPK).sum())
+    check(f"K7 pack_blocks (phase D, {k7[0][1].shape[0]} blocks, "
+          f"{npackets} packets; library_ms: torch scatter_add_ of the "
+          f"precomputed words)", "K7", "deflate_tpu_torch/csrc/pack.cu",
+          "deflate_tpu/ops/pallas_pack.py:49", pack.pack_blocks_kernel,
+          pack.pack_blocks_plain, k7, library=k7_library_ms,
+          # the live packets' offset and two payload words, the counts,
+          # the words out
+          bound_bytes=12 * npackets + nbytes(torch, k7[0][0])
+          + k7[0][1].shape[0] * pack.OUTW * 4)
+    check(f"K8 decode_positions ({len(calls['K8'])} buckets of phase E, "
+          f"W64 {[c[2] for c in calls['K8']]})", "K8",
+          "deflate_tpu_torch/csrc/wave_stagea.cu",
+          "deflate_tpu/ops/wave_stagea.py:53",
+          wave_stagea.decode_positions_kernel,
+          wave_stagea.decode_positions_plain, calls["K8"])
 
     bad = [r["name"] for r in results if r["max_abs_err"] != 0]
     for r in results:

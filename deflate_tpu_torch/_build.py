@@ -34,7 +34,9 @@ I = ctypes.c_int
 SIGNATURES = {
     "tree": {"dt_tree_depths": [P, P, P, I, I, P]},
     "wave_stagea": {"dt_decode_mark": [P, P, P, P, P, P,
-                                       I, I, I, I, P]},
+                                       I, I, I, I, P],
+                    "dt_decode_positions": [P, P, P, P, I, I, P]},
+    "pack": {"dt_pack_blocks": [P, P, P, P, P, I, I, I, P]},
     "wave_route": {"dt_route": [P, P, P, P, I, I, I, I, I, P]},
     "wave_fill": {"dt_fill_matches": [P, P, P, P, I, P]},
     "wave_fill_hist": {"dt_fill_matches_hist": [P, P, P, P, P, I, P]},

@@ -1,4 +1,6 @@
-// Kernel K2: wavefront stages A+B and the within-chunk compaction, fused.
+// Kernel K2: wavefront stages A+B and the within-chunk compaction, fused;
+// and kernel K8, stage A alone (decode_positions_kernel, below), which
+// shares decode_core.
 //
 // Replaces deflate_tpu/ops/wave_stagea.py::_kernel_ab (wrapper
 // decode_mark_pallas).  Plain version: deflate_tpu_torch/ops/
@@ -206,7 +208,56 @@ __global__ void decode_mark_kernel(const int* __restrict__ nwords,
   for (int k = 0; k < 9; ++k) s[(int64_t)k * W64] = vals[k];
 }
 
+// Kernel K8: stage A alone — decode_core at every bit position.
+//
+// Replaces deflate_tpu/ops/wave_stagea.py::_kernel (wrapper
+// decode_positions_pallas), the unfused route of the reference's
+// wave_decode (DT_STAGEAB_PALLAS=0).  Plain version: deflate_tpu_torch/
+// ops/wave.py::decode_positions at 15 compare rounds, as the reference's
+// wrapper always runs.
+//
+// One thread per (block, bit phase t, chunk w): the 64-bit peek at body
+// bit 64w + t from the window words, as K2 builds it, then decode_core;
+// A0/P1 land at [b, t, w].  Grid (chunk tiles, 64 phases, blocks):
+// adjacent threads take adjacent chunks, so the stores are coalesced and
+// the word loads are 8 bytes apart.  Bound by integer operations: every
+// phase runs two 15-round canonical decodes (~300 operations) for 8 bytes
+// written, where K2 decodes only the chain of real symbol starts.
+__global__ void decode_positions_kernel(const int* __restrict__ nwords,
+                                        const int* __restrict__ md_g,
+                                        int* __restrict__ a0,
+                                        int* __restrict__ p1, int W64) {
+  __shared__ int md[7 * 16];
+  const int b = blockIdx.z;
+  const int t = blockIdx.y;
+  for (int i = threadIdx.x; i < 7 * 16; i += blockDim.x)
+    md[i] = md_g[(int64_t)b * 7 * 16 + i];
+  __syncthreads();
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= W64) return;
+  const int* nw = nwords + (int64_t)b * (2 * W64 + 4);
+  const int i = 2 * w + (t >> 5);
+  const int r = t & 31;
+  const int x0 = nw[i], x1 = nw[i + 1], x2 = nw[i + 2];
+  const int PK = r ? (srl(x0, r) | shl(x1, 32 - r)) : x0;
+  const int PKH = r ? (srl(x1, r) | shl(x2, 32 - r)) : x1;
+  int A0, P1;
+  decode_core(PK, PKH, md, 15, 15, A0, P1);
+  const int64_t o = ((int64_t)b * 64 + t) * W64 + w;
+  a0[o] = A0;
+  p1[o] = P1;
+}
+
 }  // namespace
+
+extern "C" int dt_decode_positions(const void* nwords, const void* md7,
+                                   void* a0, void* p1, int B, int W64,
+                                   void* stream) {
+  dim3 grid((W64 + THREADS - 1) / THREADS, 64, B);
+  decode_positions_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)nwords, (const int*)md7, (int*)a0, (int*)p1, W64);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int dt_decode_mark(const void* nwords, const void* hints,
                               const void* md8, void* a0c, void* p1c,

@@ -1,28 +1,32 @@
 """The DEFLATE encoder pipeline over a batch of 32 KiB blocks.
 
-Port of deflate_tpu/models/encoder.py (merge-tree emission path), levels
-0-2.  Stages, each batched over blocks:
+Port of deflate_tpu/models/encoder.py, levels 0-3.  Stages, each
+batched over blocks:
 
   A. LZ77 tokens -> symbol histograms -> Huffman trees (kernel K1 on
      CUDA, ops/tree.py) + dynamic header fields -> analytic candidate
      sizes (fixed / dynamic / stored);
   B. exact block-type choice and bit offsets (stored blocks need the
      running stream phase for their byte-align padding);
-  C. emission of the chosen encoding by direct bit placement
-     (ops/bitmerge.py), stored payloads by a whole-block funnel shift;
+  C. emission of the chosen encoding, by one of three backends that give
+     identical words: "merge" (the default; direct bit placement,
+     ops/bitmerge.py), "scatter" (packet fusion, then a pair-fused
+     scatter, emit_block) or "kernel" (packet fusion, compaction on
+     kernel K3, placement on kernel K7, ops/pack.py); stored payloads by
+     a whole-block funnel shift;
   D. bit-exact concatenation of the blocks at their offsets.
-
-Level 3 (tiered chains, 32-word windows, entropy-adaptive far-match cut,
-lazy_filter) is not ported yet and raises NotImplementedError.
 """
 from __future__ import annotations
 
 import torch
 
 from deflate_tpu_torch.ops import bitmerge as BM
+from deflate_tpu_torch.ops import bitpack as BP
 from deflate_tpu_torch.ops import header as HDR
 from deflate_tpu_torch.ops import huffman as H
 from deflate_tpu_torch.ops import lz77 as LZ
+from deflate_tpu_torch.ops import pack as PK
+from deflate_tpu_torch.ops import wave_route as WR
 from deflate_tpu_torch.ops.wave import HINT_NONE
 from deflate_tpu_torch.utils import tables as T
 from deflate_tpu_torch.utils.bits import I32, I64, M32, exclusive, u32, wrap32
@@ -42,6 +46,12 @@ L2_CANDS = 4
 L2_WIN_WORDS = 8
 L2_TOOFAR3 = 256
 PARSE_TILE = 512
+# level-3 settings: deep chains, 128-byte windows, tiered 8- and 16-byte
+# grams, large parse tiles, the far-match cut chosen per block
+L3_CANDS = 48
+L3_WIN_WORDS = 32
+L3_TIERS = (2, 4)
+L3_PARSE_TILE = 2048
 
 
 def _t(a, dev):
@@ -88,19 +98,40 @@ def _dist_eb(c):
     return torch.clamp((c >> 1) - 1, min=0)
 
 
+def _toofar3_by_entropy(block, blen):
+    """Level 3's far-match cut per block, int32 [B]: 4096 where the byte
+    entropy of the block's blen bytes is below 3.5 bits (bitmap-like
+    data), else 256.  Float32 throughout, as the reference computes it;
+    the sum runs in another order, so a block within float rounding of
+    3.5 could in principle take the other cut."""
+    cnt = _count(block.to(I32), 256)
+    cnt[:, 0] -= N - blen                          # the zero padding
+    p = cnt.to(torch.float32) / torch.clamp(blen, min=1).to(
+        torch.float32)[:, None]
+    ent = -torch.where(cnt > 0, p * torch.log2(torch.clamp(p, min=1e-12)),
+                       0.0).sum(1)
+    return torch.where(ent < 3.5, 4096, 256).to(I32)
+
+
 def tokenize_block(block, blen, level: int):
     """LZ77 parse of blocks uint8 [B, N] into position-indexed token
     arrays ([B, N] each, plus ntok [B])."""
+    tile = PARSE_TILE
     if level >= 3:
-        raise NotImplementedError("level 3 is not ported yet")
-    if level == 2:
+        length, dist = LZ.find_matches(block, blen, L3_CANDS,
+                                       win_words=L3_WIN_WORDS,
+                                       tiers=L3_TIERS,
+                                       toofar3=_toofar3_by_entropy(block,
+                                                                   blen))
+        tile = L3_PARSE_TILE
+    elif level == 2:
         length, dist = LZ.find_matches(block, blen, L2_CANDS,
                                        win_words=L2_WIN_WORDS,
                                        toofar3=L2_TOOFAR3)
     else:
         length = torch.zeros(block.shape, dtype=I32, device=block.device)
         dist = torch.zeros_like(length)
-    mark, length = LZ.greedy_parse(length, blen, tile=PARSE_TILE)
+    mark, length = LZ.greedy_parse(length, blen, tile=tile)
     is_match = mark & (length >= T.MIN_MATCH)
     lcode = _len_code(torch.clamp(length, min=T.MIN_MATCH))
     dcode = _dist_code(torch.clamp(dist, min=1))
@@ -318,10 +349,205 @@ def _emit_fields_base(block, blen, plan, choice, pad, bfinal):
         + lit_rank[:, 256], eob_l)
     ev = eob_code.to(I64) & ((1 << eob_len.to(I64)) - 1)
 
-    return {"lo": wrap32(lo), "hi": wrap32(hi), "sh": sh,
+    return {"lo": wrap32(lo), "hi": wrap32(hi), "sh": sh, "sh_sym": sh,
+            "live_tok": live_tok, "is_match": m, "len": tk["len"],
             "stored": stored, "hdr3": hdr3, "hdr3_l": hdr3_l,
             "hv": plan["header_vals"], "hl": hl, "eob_v": wrap32(ev),
             "eob_len": eob_len}
+
+
+def _comp64(loA, hiA, sA, loB, hiB, sB):
+    """Packet B appended after packet A (sA + sB <= 64); lo/hi int64
+    holding 32-bit values."""
+    sAc = torch.clamp(sA, 0, 31).to(I64)
+    lt32 = sA < 32
+    loC = torch.where(lt32, loA | ((loB << sAc) & M32), loA)
+    spill = torch.where(lt32 & (sA > 0),
+                        loB >> (32 - torch.clamp(sAc, min=1)), 0)
+    hiC = hiA | torch.where(
+        lt32, spill | ((hiB << sAc) & M32),
+        (loB << torch.clamp(sA - 32, 0, 31).to(I64)) & M32)
+    return loC, hiC, sA + sB
+
+
+def _emit_fields(block, blen, plan, choice, pad, bfinal):
+    """Stage-C planning of the scatter and kernel backends, batched: the
+    base fields plus the hierarchical <= 64-bit packet fusion (up to 16
+    consecutive tokens in one packet) and n_live [B], the live packets
+    left.  sh_sym keeps the per-symbol widths (the decode hints)."""
+    f = _emit_fields_base(block, blen, plan, choice, pad, bfinal)
+    B = block.shape[0]
+    lo, hi, sh = u32(f["lo"]), u32(f["hi"]), f["sh"]
+    live_tok = f["live_tok"]
+    lr = live_tok & (sh > 0)                       # fusable packets
+    # runw: block positions the packet covers (1 for a literal, its length
+    # for a match).  A fuse is legal only when the LEFT packet covers its
+    # half exactly, so no live token between the halves is reordered.
+    runw = torch.where(lr, torch.where(f["is_match"], f["len"], 1), 0)
+    for lvl in range(4):
+        w = 1 << lvl
+        loR, hiR, shR, lrR, lvR, rwR = (
+            x.reshape(B, -1, 2 * w).clone()
+            for x in (lo, hi, sh, lr, live_tok, runw))
+        can = (lrR[..., 0] & lrR[..., w] & (rwR[..., 0] == w)
+               & (shR[..., 0] + shR[..., w] <= 64))
+        loC, hiC, shC = _comp64(loR[..., 0], hiR[..., 0], shR[..., 0],
+                                loR[..., w], hiR[..., w], shR[..., w])
+        for R, C in ((loR, loC), (hiR, hiC), (shR, shC),
+                     (rwR, w + rwR[..., w])):
+            R[..., 0] = torch.where(can, C, R[..., 0])
+            R[..., w] = torch.where(can, 0, R[..., w])
+        lrR[..., w] &= ~can
+        lvR[..., w] &= ~can
+        lo, hi, sh, lr, live_tok, runw = (
+            x.reshape(B, -1) for x in (loR, hiR, shR, lrR, lvR, rwR))
+    return {**f, "lo": wrap32(lo), "hi": wrap32(hi), "sh": sh,
+            "live_tok": live_tok, "n_live": live_tok.sum(1).to(I32)}
+
+
+def _spread(lo, hi, s):
+    """(lo, hi) << s over a 3-word window, s in [0, 32); int64 lanes."""
+    ns = 32 - torch.clamp(s, min=1)
+    c0 = (lo << s) & M32
+    c1 = torch.where(s == 0, hi, (lo >> ns) | ((hi << s) & M32))
+    c2 = torch.where(s == 0, 0, hi >> ns)
+    return c0, c1, c2
+
+
+def emit_block(blocks, blens, plan, choice, pad, bfinal):
+    """Stage C, scatter backend, batched: each block's chosen encoding as
+    int32 [B, WB] words."""
+    return _emit_scatter(blocks, blens, pad,
+                         _emit_fields(blocks, blens, plan, choice, pad,
+                                      bfinal))
+
+
+def _emit_scatter(blocks, blens, pad, f):
+    """emit_block from the _emit_fields fields f: the header by
+    pack_bits, position pairs fused into 5-word windows and scatter-added
+    at their bit offsets (the bits never overlap, so add equals or), then
+    the end-of-block code."""
+    lo, hi, sh = u32(f["lo"]), u32(f["hi"]), f["sh"].to(I64)
+    tok_off = torch.cumsum(sh, 1) - sh
+    tok_bits = tok_off[:, -1] + sh[:, -1]
+    hdr_words, hdr_bits = BP.pack_bits(
+        torch.cat([f["hdr3"], f["hv"]], 1),
+        torch.cat([f["hdr3_l"], f["hl"]], 1), WB)
+
+    off = hdr_bits.to(I64)[:, None] + tok_off
+    off0 = off[:, 0::2]
+    r0 = off0 & 31
+    a = _spread(lo[:, 0::2], hi[:, 0::2], r0)
+    d = r0 + sh[:, 0::2]                      # second packet's window offset
+    k1 = d >> 5                               # 0..2
+    b = _spread(lo[:, 1::2], hi[:, 1::2], d & 31)
+    zero = torch.zeros_like(b[0])
+    bs = [*b, zero, zero]
+
+    def at(j):                                # b[j - k1], 0 out of range
+        return torch.where(k1 == 0, bs[j] if j <= 2 else zero,
+               torch.where(k1 == 1, bs[j - 1] if 1 <= j <= 3 else zero,
+                           bs[j - 2] if j >= 2 else zero))
+
+    # 5 words: a fused-literal pair (60 + 60 bits) at phase 31 spans them
+    win = [a[0] | at(0), a[1] | at(1), a[2] | at(2), at(3), at(4)]
+    w0 = off0 >> 5
+    eob_off = hdr_bits.to(I64) + tok_bits
+    er = eob_off & 31
+    ev = u32(f["eob_v"])
+    idx = torch.cat([w0 + j for j in range(5)]
+                    + [(eob_off >> 5)[:, None], (eob_off >> 5)[:, None] + 1],
+                    1)
+    vals = torch.cat(win + [((ev << er) & M32)[:, None],
+                            torch.where(er == 0, 0,
+                                        ev >> (32 - torch.clamp(er, min=1))
+                                        )[:, None]], 1)
+    words = BP.scatter_words(WB, idx, vals)
+    words = wrap32(u32(words) + u32(hdr_words))
+    nbits = eob_off + f["eob_len"].to(I64)
+    return _finish_block(words, blocks, blens, f["stored"], pad, nbits)
+
+
+def _packet_pre(blocks, blens, plan, choice, pad, bfinal):
+    """Stage C (kernel backend) part 1, batched: the fused emission fields
+    with the end-of-block code as packet N, and each live packet's
+    compaction displacement (delta, -1 for dead lanes)."""
+    return _packets_of(_emit_fields(blocks, blens, plan, choice, pad,
+                                    bfinal))
+
+
+def _packets_of(f):
+    """_packet_pre from the _emit_fields fields f."""
+    B = f["lo"].shape[0]
+    dev = f["lo"].device
+    hdr_lens = torch.cat([f["hdr3_l"], f["hl"]], 1)
+    hmask = torch.where(hdr_lens > 0,
+                        (1 << torch.clamp(hdr_lens, max=16)) - 1, 0)
+    hdr_lo = torch.cat([f["hdr3"], f["hv"]], 1).to(I32) & hmask
+    live = torch.cat([f["live_tok"], ~f["stored"][:, None]], 1)
+    lo_t = torch.cat([f["lo"], f["eob_v"][:, None]], 1)
+    hi_t = torch.cat([f["hi"], torch.zeros((B, 1), dtype=I32, device=dev)],
+                     1)
+    sh_t = torch.cat([f["sh"], f["eob_len"][:, None]], 1).to(I32)
+    lv = live.to(I32)
+    rank = exclusive(lv, 1)
+    lane = torch.arange(N + 1, dtype=I32, device=dev)[None, :]
+    delta = torch.where(live, lane - rank, -1)
+    return {"lo_t": lo_t, "hi_t": hi_t, "sh_t": sh_t, "delta": delta,
+            "hdr_lo": hdr_lo, "hdr_lens": hdr_lens.to(I32),
+            "n_live": f["n_live"], "stored": f["stored"]}
+
+
+def _route_packets(pre):
+    """Compact every block's live packets to the front of NPK lanes:
+    monotone routing (16 rounds) on kernel K3 (CUDA) or its plain
+    version (CPU).  Returns (lo, hi, sh) int32 [B, NPK], zero past the
+    live packets."""
+    padw = PK.NPK - (N + 1)
+    p2 = torch.nn.functional.pad
+    (slo, shi, ssh), _ = WR.route(
+        [p2(pre[k], (0, padw)) for k in ("lo_t", "hi_t", "sh_t")],
+        p2(pre["delta"], (0, padw), value=-1), 16, left=True)
+    return slo, shi, ssh
+
+
+def _packet_post(pre, slo, shi, ssh):
+    """Stage C (kernel backend) part 2, batched: header entries ahead of
+    the routed packets, exclusive bit offsets.  Returns (off, lo, hi
+    int32 [B, NPK], count [B] live packets, nbits [B], stored [B])."""
+    hdr_lo, hdr_lens = pre["hdr_lo"], pre["hdr_lens"]
+    HD = hdr_lo.shape[1]
+    take = PK.NPK - HD                      # >= N + 1: every live packet
+    all_lo = torch.cat([hdr_lo, slo[:, :take]], 1)
+    all_hi = torch.cat([torch.zeros_like(hdr_lo), shi[:, :take]], 1)
+    all_sh = torch.cat([hdr_lens, ssh[:, :take]], 1)
+    off = exclusive(all_sh, 1)
+    nbits = off[:, -1] + all_sh[:, -1]
+    count = HD + torch.where(pre["stored"], 0, pre["n_live"] + 1)
+    return off, all_lo, all_hi, count.to(I32), nbits, pre["stored"]
+
+
+def build_packets(blocks, blens, plan, choice, pad, bfinal):
+    """Stage C, kernel backend, up to the pack: every block's packet list
+    in the contract of ops/pack.py — (off, lo, hi, count, nbits,
+    stored)."""
+    return _packet_list(_emit_fields(blocks, blens, plan, choice, pad,
+                                     bfinal))
+
+
+def _packet_list(f):
+    """build_packets from the _emit_fields fields f."""
+    pre = _packets_of(f)
+    return _packet_post(pre, *_route_packets(pre))
+
+
+def _emit_kernel(blocks, blens, pad, f):
+    """Stage C, kernel backend, from the _emit_fields fields f: packets
+    compacted on K3, placed on K7, then the stored payloads and the
+    end mask."""
+    off, lo, hi, counts, nbits, stored = _packet_list(f)
+    words = PK.pack_blocks(counts, off, lo, hi)[:, :WB]
+    return _finish_block(words, blocks, blens, stored, pad, nbits)
 
 
 def _finish_block(words, block, blen, stored, pad, nbits):
@@ -407,43 +633,63 @@ def block_hints(sh, stored, W64cap: int = W64CAP):
     return torch.where(stored[:, None], HINT_NONE, hints)
 
 
+PACKS = ("merge", "scatter", "kernel")
+
+
 def _encode(blocks, blens, live, final_idx: int, level: int, phase0: int,
-            want_hints: bool):
+            want_hints: bool, pack: str | None = None):
+    """pack: emission backend (PACKS), None for "merge", the reference's
+    default.  The reference also picks a Huffman-tree backend per pack; the
+    port has one (K1 on the card, its plain version on the CPU)."""
+    pack = pack or "merge"
+    if pack not in PACKS:
+        raise ValueError(f"unknown pack backend {pack!r}")
     B = blocks.shape[0]
     plans = batch_plan(blocks, blens, level)
     choice, pad, offset, bits = choose_blocks(
         plans["fixed_bits"], plans["dyn_bits"], blens, live, level, phase0)
     bfinal = torch.arange(B, device=blocks.device) == final_idx
-    f = _emit_fields_base(blocks, blens, plans, choice, pad, bfinal)
-    words = _emit_merge_batch(blocks, blens, pad, f)
+    if pack == "merge":
+        f = _emit_fields_base(blocks, blens, plans, choice, pad, bfinal)
+        words = _emit_merge_batch(blocks, blens, pad, f)
+    else:
+        f = _emit_fields(blocks, blens, plans, choice, pad, bfinal)
+        emit = _emit_scatter if pack == "scatter" else _emit_kernel
+        words = emit(blocks, blens, pad, f)
     words = torch.where(live[:, None], words, 0)
     # the first block's sub-byte entry phase is baked into its own bits
     out, total = BM.merge_words(words, bits, B * WB)
-    hints = block_hints(f["sh"], f["stored"]) if want_hints else None
+    # hints from the per-symbol widths, not the fused packets' widths
+    hints = block_hints(f["sh_sym"], f["stored"]) if want_hints else None
     return out, total, offset, bits, hints
 
 
 def encode_batch(blocks, blens, live, final_idx: int, level: int,
-                 phase0: int = 0):
+                 phase0: int = 0, pack: str | None = None):
     """Encode B blocks into one contiguous bitstream segment.
 
     blocks uint8 [B, 32768] (zero padded), blens int32 [B], live bool [B]
     (padding blocks excluded), final_idx: index of the BFINAL block or
-    -1, phase0: absolute bit offset of the segment in the stream.
-    Returns (words int32 [B*WB], total_bits int32)."""
+    -1, phase0: absolute bit offset of the segment in the stream, pack:
+    emission backend ("merge", the default for None; "scatter";
+    "kernel"), all bit-identical.  Returns (words int32 [B*WB],
+    total_bits int32)."""
     return _encode(blocks, blens, live, final_idx, level, phase0,
-                   False)[:2]
+                   False, pack)[:2]
 
 
 def encode_batch_with_offsets(blocks, blens, live, final_idx: int,
-                              level: int, phase0: int = 0):
+                              level: int, phase0: int = 0,
+                              pack: str | None = None):
     """encode_batch plus per-block absolute offsets and bits [B]."""
     return _encode(blocks, blens, live, final_idx, level, phase0,
-                   False)[:4]
+                   False, pack)[:4]
 
 
 def encode_batch_with_hints(blocks, blens, live, final_idx: int,
-                            level: int, phase0: int = 0):
+                            level: int, phase0: int = 0,
+                            pack: str | None = None):
     """encode_batch_with_offsets plus the per-block wavefront decode
     hints int32 [B, 4224]."""
-    return _encode(blocks, blens, live, final_idx, level, phase0, True)
+    return _encode(blocks, blens, live, final_idx, level, phase0, True,
+                   pack)

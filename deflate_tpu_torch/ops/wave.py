@@ -9,7 +9,8 @@ references):
            membership bitmasks); extract bit-normalized body windows.
   A+B    : decode at the chunk's symbol starts, hint-seeded 64-step mark
            automaton, per-chunk sums, within-chunk compaction — kernel
-           K2 (ops/wave_stagea.py).
+           K2 (ops/wave_stagea.py); or, with DT_STAGEAB_PALLAS=0, stage
+           A at all 64 bit phases on kernel K8 and the rest in torch.
   C      : chunk-level exclusive sums (output offsets, symbol indices).
   D      : route chunk-compact symbol records to dense slots — kernel K3
            (ops/wave_route.py).
@@ -25,6 +26,7 @@ manifest, or from hints_from_walk_host for hintless streams.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -586,16 +588,23 @@ def wave_decode(nwords, hints, out_expect, md, W64: int, stop_bit=None,
     tables (parse_headers_host keys, as int32 tensors); stop_bit int32
     [B] or None: a synthetic EOB at that body bit (-1: none).
 
+    Stages A+B run fused on kernel K2; with the environment variable
+    DT_STAGEAB_PALLAS=0 (read at each call, as the reference reads it)
+    they take the reference's unfused route instead: stage A alone on
+    kernel K8, then the mark automaton and compaction in torch.
+
     Returns (litwords int32 [B, ND//4] — literal bytes placed, match
     bytes zero; rec0, rec1 [B, NM] match records (opos | len3<<16,
     dist); nmatch [B]; produced [B]; err [B] int32)."""
+    from deflate_tpu_torch.ops import wave_stagea as WS
     from deflate_tpu_torch.ops.wave_route import route
-    from deflate_tpu_torch.ops.wave_stagea import decode_mark
 
     B = nwords.shape[0]
     dev = nwords.device
-    A0c, P1c, sums = decode_mark(nwords, hints, stack_md(md), W64,
-                                 stop_bit, maxl, maxd)
+    fused = bool(int(os.environ.get("DT_STAGEAB_PALLAS", "1")))
+    mark = WS.decode_mark if fused else WS.decode_mark_split
+    A0c, P1c, sums = mark(nwords, hints, stack_md(md), W64, stop_bit,
+                          maxl, maxd)
     sstart = exclusive(sums["sum_cnt"], 1)
     produced = sums["sum_emit"].sum(1).to(I32)
     nsym = sstart[:, -1] + sums["sum_cnt"][:, -1]

@@ -1,7 +1,7 @@
-"""Kernel K2: fused wavefront stages A+B and within-chunk compaction
-(csrc/wave_stagea.cu).
+"""Kernel K2, fused wavefront stages A+B and within-chunk compaction, and
+kernel K8, stage A alone (both in csrc/wave_stagea.cu).
 
-Replaces deflate_tpu/ops/wave_stagea.py (`_kernel_ab`, wrapper
+K2 replaces deflate_tpu/ops/wave_stagea.py (`_kernel_ab`, wrapper
 `decode_mark_pallas`).  Plain version: the same composition as the
 reference's unfused branch (wave.py:834-849) — decode_positions, the
 stop_bit override, chunk_automaton and chunk_compact — with rows at or
@@ -9,6 +9,12 @@ past a chunk's symbol count zeroed.  Those rows hold leftovers of the
 compaction rounds in the reference; no reader looks at them (stage D
 routes only the first sum_cnt rows of each chunk), and zeroing them
 makes kernel and plain version equal in every entry.
+
+K8 replaces `_kernel` (wrapper `decode_positions_pallas`): A0/P1 at every
+bit position, always 15 compare rounds as the reference's wrapper runs.
+Plain version: wave.decode_positions.  decode_mark_split is the
+reference's unfused route: K8, then the same torch tail as
+decode_mark_plain.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ from deflate_tpu_torch.utils.bits import I32
 
 SUM_KEYS = ("Mlo", "Mhi", "Clo", "Chi", "sum_emit", "sum_cnt",
             "sum_match", "sum_eob", "sum_inv")
-launches = 0
+launches = 0                 # K2
+positions_launches = 0       # K8
 
 
 def _md8(mds: torch.Tensor, stop_bit) -> torch.Tensor:
@@ -34,10 +41,13 @@ def _md8(mds: torch.Tensor, stop_bit) -> torch.Tensor:
     return torch.cat([mds.to(I32), srow], 1).contiguous()
 
 
-def decode_mark_plain(nwords, hints, mds, W64: int, stop_bit=None,
-                      maxl: int = 15, maxd: int = 15):
-    """Returns (A0c, P1c int32 [B, CCAP, W64], sums int32 [B, 9, W64])."""
-    A0, P1 = W.decode_positions(nwords, mds, W64, maxl, maxd)
+def _mark_from(stage_a, nwords, hints, mds, W64: int, stop_bit, maxl: int,
+               maxd: int):
+    """Stage A by stage_a(nwords, mds, W64, maxl, maxd) -> (A0, P1), then
+    the stop_bit override, chunk_automaton and chunk_compact in torch,
+    with rows at or past each chunk's count zeroed.  Returns (A0c, P1c
+    int32 [B, CCAP, W64], sums int32 [B, 9, W64])."""
+    A0, P1 = stage_a(nwords, mds, W64, maxl, maxd)
     if stop_bit is not None:
         dev = nwords.device
         pos = (torch.arange(W64, dtype=I32, device=dev)[None, None, :] * 64
@@ -51,6 +61,13 @@ def decode_mark_plain(nwords, hints, mds, W64: int, stop_bit=None,
             [None, :, None] < sums["sum_cnt"][:, None, :])
     return (torch.where(rows, A0c, 0), torch.where(rows, P1c, 0),
             torch.stack([sums[k] for k in SUM_KEYS], 1))
+
+
+def decode_mark_plain(nwords, hints, mds, W64: int, stop_bit=None,
+                      maxl: int = 15, maxd: int = 15):
+    """Returns (A0c, P1c int32 [B, CCAP, W64], sums int32 [B, 9, W64])."""
+    return _mark_from(W.decode_positions, nwords, hints, mds, W64,
+                      stop_bit, maxl, maxd)
 
 
 def decode_mark_kernel(nwords, hints, mds, W64: int, stop_bit=None,
@@ -80,6 +97,10 @@ def decode_mark_kernel(nwords, hints, mds, W64: int, stop_bit=None,
     return A0c, P1c, sums
 
 
+def _sums_dict(A0c, P1c, sums):
+    return A0c, P1c, {k: sums[:, i] for i, k in enumerate(SUM_KEYS)}
+
+
 def decode_mark(nwords, hints, mds, W64: int, stop_bit=None,
                 maxl: int = 15, maxd: int = 15):
     """Fused stage A+B+compaction for one bucket.
@@ -90,5 +111,51 @@ def decode_mark(nwords, hints, mds, W64: int, stop_bit=None,
     the chunk's count — and sums dict of [B, W64]).  CUDA tensors run
     K2; CPU tensors the plain version."""
     fn = decode_mark_kernel if nwords.is_cuda else decode_mark_plain
-    A0c, P1c, sums = fn(nwords, hints, mds, W64, stop_bit, maxl, maxd)
-    return A0c, P1c, {k: sums[:, i] for i, k in enumerate(SUM_KEYS)}
+    return _sums_dict(*fn(nwords, hints, mds, W64, stop_bit, maxl, maxd))
+
+
+def decode_positions_plain(nwords, mds, W64: int):
+    """A0, P1 int32 [B, 64, W64] at 15 compare rounds."""
+    return W.decode_positions(nwords, mds, W64)
+
+
+def decode_positions_kernel(nwords, mds, W64: int):
+    """K8 on the card: same contract as decode_positions_plain."""
+    global positions_launches
+    nwords = nwords.to(I32).contiguous()
+    md7 = mds[:, :len(W.MD_KEYS)].to(I32).contiguous()
+    dev = _build.require_cuda(nwords, md7)
+    B = nwords.shape[0]
+    if nwords.shape != (B, 2 * W64 + 4) or md7.shape != (B, 7, 16):
+        raise ValueError(f"bad stage-A operands {tuple(nwords.shape)}, "
+                         f"{tuple(md7.shape)} for W64={W64}")
+    A0 = torch.empty((B, 64, W64), dtype=I32, device=dev)
+    P1 = torch.empty_like(A0)
+    if B:
+        err = _build.lib("wave_stagea").dt_decode_positions(
+            nwords.data_ptr(), md7.data_ptr(), A0.data_ptr(), P1.data_ptr(),
+            B, W64, _build.stream_ptr(dev))
+        _build.check(err, "dt_decode_positions")
+        positions_launches += 1
+    return A0, P1
+
+
+def decode_positions(nwords, mds, W64: int):
+    """Stage A at every bit position: A0, P1 int32 [B, 64, W64] (A0[b, t,
+    w] decodes body bit 64w + t).  CUDA tensors run K8; CPU tensors the
+    plain version."""
+    fn = decode_positions_kernel if nwords.is_cuda else \
+        decode_positions_plain
+    return fn(nwords, mds, W64)
+
+
+def decode_mark_split(nwords, hints, mds, W64: int, stop_bit=None,
+                      maxl: int = 15, maxd: int = 15):
+    """decode_mark by the unfused route: stage A on K8 (15 rounds; maxl
+    and maxd are ignored, as the reference's wrapper ignores them), then
+    the stop override, mark automaton and compaction in torch."""
+    def stage_a(nw, m, w64, _maxl, _maxd):
+        return decode_positions(nw, m, w64)
+
+    return _sums_dict(*_mark_from(stage_a, nwords, hints, mds, W64,
+                                  stop_bit, maxl, maxd))

@@ -199,6 +199,45 @@ def _as_u8(data) -> np.ndarray:
     return a.reshape(-1)
 
 
+def split_blocks(data):
+    """bytes or a uint8 array -> (blocks uint8 [n, BLOCK_SIZE] zero
+    padded, blens int32 [n]), numpy; one empty block for empty input."""
+    buf = _as_u8(data)
+    nblocks = max(1, -(-len(buf) // BLOCK_SIZE))
+    blocks = np.zeros((nblocks, BLOCK_SIZE), np.uint8)
+    blens = np.zeros((nblocks,), np.int32)
+    for i in range(nblocks):
+        chunk = buf[i * BLOCK_SIZE:(i + 1) * BLOCK_SIZE]
+        blocks[i, :len(chunk)] = chunk
+        blens[i] = len(chunk)
+    return blocks, blens
+
+
+def manifest_of(words, total, offset, bits, harr, blens):
+    """(stream bytes, Manifest) from an encode of split_blocks' blocks:
+    encoder.encode_batch_with_hints' outputs (harr None: no hints)."""
+    from deflate_tpu_torch.ops.wave import HINT_NONE
+    from deflate_tpu_torch.runtime import stitch as S
+
+    stream = S.words_to_bytes(words.cpu().numpy(), int(total))
+    offset = offset.cpu().numpy()
+    bits = bits.cpu().numpy()
+    hlist = None
+    if harr is not None:
+        harr = harr.cpu().numpy().astype(np.uint8)
+        hlist = []
+        for i in range(len(blens)):
+            h = harr[i, :int(-(-bits[i] // 64))]
+            # trim trailing no-symbol chunks (stored blocks -> empty;
+            # post-EOB tail chunks) so every kept phase fits 6 bits
+            keep = np.nonzero(h != HINT_NONE)[0]
+            hlist.append(h[:keep[-1] + 1].tobytes() if len(keep) else b"")
+    man = Manifest(BLOCK_SIZE, int(offset[-1] + bits[-1]),
+                   [(int(offset[i]), int(bits[i]), int(blens[i]))
+                    for i in range(len(blens))], hlist)
+    return stream, man
+
+
 def compress_with_manifest(data, level: int = 2, hints: bool = True,
                            device="cuda"):
     """Compress on `device` (a torch device: the card by default, "cpu"
@@ -209,39 +248,14 @@ def compress_with_manifest(data, level: int = 2, hints: bool = True,
 
     from deflate_tpu_torch._build import torch_device
     from deflate_tpu_torch.models import encoder as E
-    from deflate_tpu_torch.ops.wave import HINT_NONE
-    from deflate_tpu_torch.runtime import stitch as S
 
     dev = torch_device(device)
-    buf = _as_u8(data)
-    nblocks = max(1, -(-len(buf) // BLOCK_SIZE))
-    blocks = np.zeros((nblocks, BLOCK_SIZE), np.uint8)
-    blens = np.zeros((nblocks,), np.int32)
-    for i in range(nblocks):
-        chunk = buf[i * BLOCK_SIZE:(i + 1) * BLOCK_SIZE]
-        blocks[i, :len(chunk)] = chunk
-        blens[i] = len(chunk)
-    words, total, offset, bits, harr = E._encode(
+    blocks, blens = split_blocks(data)
+    n = len(blens)
+    out = E._encode(
         torch.from_numpy(blocks).to(dev), torch.from_numpy(blens).to(dev),
-        torch.ones(nblocks, dtype=torch.bool, device=dev), nblocks - 1,
-        level, 0, hints)
-    stream = S.words_to_bytes(words.cpu().numpy(), int(total))
-    offset = offset.cpu().numpy()
-    bits = bits.cpu().numpy()
-    hlist = None
-    if hints:
-        harr = harr.cpu().numpy().astype(np.uint8)
-        hlist = []
-        for i in range(nblocks):
-            h = harr[i, :int(-(-bits[i] // 64))]
-            # trim trailing no-symbol chunks (stored blocks -> empty;
-            # post-EOB tail chunks) so every kept phase fits 6 bits
-            keep = np.nonzero(h != HINT_NONE)[0]
-            hlist.append(h[:keep[-1] + 1].tobytes() if len(keep) else b"")
-    man = Manifest(BLOCK_SIZE, int(offset[-1] + bits[-1]),
-                   [(int(offset[i]), int(bits[i]), int(blens[i]))
-                    for i in range(nblocks)], hlist)
-    return stream, man
+        torch.ones(n, dtype=torch.bool, device=dev), n - 1, level, 0, hints)
+    return manifest_of(*out, blens)
 
 
 def decode_all(stream: bytes, man: Manifest, device="cuda") -> bytes:

@@ -12,8 +12,10 @@ import pytest
 import torch
 
 import deflate_tpu_torch as D
+from deflate_tpu_torch.models import encoder as E
 from deflate_tpu_torch.ops import block_inflate as BI
 from deflate_tpu_torch.ops import huffman as H
+from deflate_tpu_torch.ops import pack as PK
 from deflate_tpu_torch.ops import tree
 from deflate_tpu_torch.ops import wave as W
 from deflate_tpu_torch.ops import wave_fill as WF
@@ -148,4 +150,85 @@ def test_foreign_and_hintless_paths_on_card(cuda_device):
     assert st["device_path"] == "wave"
     s, m = M.compress_with_manifest(data, level=2, hints=False,
                                     device=cuda_device)
+    assert M.decode_all(s, m, device=cuda_device) == data
+
+
+def test_k7_kernel_matches_plain(cuda_device):
+    """Random 0-48-bit packets at every bit phase, one block full to
+    NPK, one empty, and the packet lists of a real level-3 encode."""
+    rng = np.random.default_rng(9)
+    B = 4
+    counts = np.array([PK.NPK, 0, 5000, 33000], np.int32)
+    # mostly short packets, a tenth of 17-48 bits: within OUTW words
+    width = np.where(rng.random((B, PK.NPK)) < 0.1,
+                     rng.integers(17, 49, (B, PK.NPK)),
+                     rng.integers(0, 6, (B, PK.NPK)))
+    off = (np.cumsum(width, 1) - width).astype(np.int32)
+    val = rng.integers(0, 1 << 62, (B, PK.NPK), dtype=np.int64)
+    val &= (np.int64(1) << width.astype(np.int64)) - 1
+    lo = (val & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    hi = (val >> 32).astype(np.int32)
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in (counts, off, lo, hi)]
+    got = PK.pack_blocks_kernel(*args)
+    want = PK.pack_blocks_plain(*args)
+    torch.cuda.synchronize()
+    assert_same(got, want, "K7 random packets")
+
+    data = np.frombuffer(corpus(2, seed=35), np.uint8).reshape(2, 32768)
+    blocks = torch.from_numpy(data.copy()).to(cuda_device)
+    blens = torch.full((2,), 32768, dtype=torch.int32, device=cuda_device)
+    plans = E.batch_plan(blocks, blens, 3)
+    live = torch.ones(2, dtype=torch.bool, device=cuda_device)
+    choice, pad, _, _ = E.choose_blocks(plans["fixed_bits"],
+                                        plans["dyn_bits"], blens, live, 3, 0)
+    bfinal = torch.arange(2, device=cuda_device) == 1
+    off, lo, hi, counts, _, _ = E.build_packets(blocks, blens, plans,
+                                                choice, pad, bfinal)
+    got = PK.pack_blocks_kernel(counts, off, lo, hi)
+    want = PK.pack_blocks_plain(counts, off, lo, hi)
+    torch.cuda.synchronize()
+    assert_same(got, want, "K7 level-3 packets")
+
+
+def test_k8_kernel_matches_plain(cuda_device):
+    data = corpus(4, seed=21)
+    stream, man = M.compress_with_manifest(data, level=3, device="cpu")
+    offs = [b[0] for b in man.blocks]
+    md = W.parse_headers_host(stream, offs)
+    huff = [i for i in range(len(offs)) if md["btype"][i] != 0]
+    for W64 in (512, 4224):
+        nw = torch.from_numpy(W.prepare_windows(
+            stream, md["data_start"][huff], W64)).to(cuda_device)
+        mds = torch.stack([torch.from_numpy(np.asarray(md[k])[huff])
+                           for k in W.MD_KEYS], 1).to(cuda_device)
+        got = WS.decode_positions_kernel(nw, mds, W64)
+        want = WS.decode_positions_plain(nw, mds, W64)
+        torch.cuda.synchronize()
+        assert_same(got[0], want[0], f"A0 W64={W64}")
+        assert_same(got[1], want[1], f"P1 W64={W64}")
+
+
+def test_level3_kernel_pack_and_split_decode_on_card(cuda_device,
+                                                     monkeypatch):
+    """Level 3 through pack="kernel" on the card equals the CPU's default
+    backend, and the split stage-A decode round-trips it."""
+    data = corpus(3, seed=36)[:3 * 32768 - 501]
+    buf = np.frombuffer(data, np.uint8)
+    blocks = np.zeros((3, 32768), np.uint8)
+    blens = np.zeros(3, np.int32)
+    for b in range(3):
+        c = buf[b * 32768:(b + 1) * 32768]
+        blocks[b, :len(c)] = c
+        blens[b] = len(c)
+    args = [torch.from_numpy(blocks), torch.from_numpy(blens),
+            torch.ones(3, dtype=torch.bool)]
+    want = E.encode_batch_with_hints(*args, 2, 3, 0)
+    got = E.encode_batch_with_hints(*[x.to(cuda_device) for x in args], 2,
+                                    3, 0, pack="kernel")
+    for g, w in zip(got, want):
+        assert_same(g, w)
+    s, m = M.compress_with_manifest(data, level=3, device=cuda_device)
+    assert zlib.decompress(s, -15) == data
+    monkeypatch.setenv("DT_STAGEAB_PALLAS", "0")
     assert M.decode_all(s, m, device=cuda_device) == data

@@ -12,7 +12,8 @@ MODULES = ("deflate_tpu_torch", "deflate_tpu_torch._build",
            "deflate_tpu_torch.utils.bits", "deflate_tpu_torch.utils.tables",
            "deflate_tpu_torch.ops.huffman", "deflate_tpu_torch.ops.tree",
            "deflate_tpu_torch.ops.header", "deflate_tpu_torch.ops.lz77",
-           "deflate_tpu_torch.ops.bitmerge", "deflate_tpu_torch.ops.wave",
+           "deflate_tpu_torch.ops.bitmerge", "deflate_tpu_torch.ops.bitpack",
+           "deflate_tpu_torch.ops.pack", "deflate_tpu_torch.ops.wave",
            "deflate_tpu_torch.ops.wave_stagea",
            "deflate_tpu_torch.ops.wave_route",
            "deflate_tpu_torch.ops.wave_fill",

@@ -44,6 +44,31 @@ def test_find_matches_and_parse_match_reference(blocks):
     assert_same(tlen, jlen, "parsed lengths")
 
 
+def test_level3_find_matches_and_lazy_filter_match_reference(blocks):
+    """Level 3's settings: tiered chains over 8- and 16-byte grams, K=48
+    with 32-word windows, a per-block far-match cut (4096 on the full
+    text block, 256 on the partial words block)."""
+    data, blens = blocks
+    data, blens = data[[0, 2]], blens[[0, 2]]
+    cut = np.array([4096, 256], np.int32)
+    jl, jd = jax.jit(jax.vmap(lambda b, n, f: JLZ.find_matches(
+        b, n, 48, win_words=32, tiers=(2, 4), toofar3=f)))(
+        jnp.asarray(data), jnp.asarray(blens), jnp.asarray(cut))
+    tl, td = LZ.find_matches(torch.from_numpy(data),
+                             torch.from_numpy(blens), 48, win_words=32,
+                             tiers=(2, 4), toofar3=torch.from_numpy(cut))
+    assert_same(tl, jl, "match lengths")
+    assert_same(td, jd, "match distances")
+    # the cut acts: length-3 matches farther than 256 only in block 0
+    far3 = (tl == 3) & (td > 256)
+    assert far3[0].any() and not far3[1].any()
+    jfl, jfd = jax.vmap(JLZ.lazy_filter)(jl, jd)
+    tfl, tfd = LZ.lazy_filter(tl, td)
+    assert_same(tfl, jfl, "lazy lengths")
+    assert_same(tfd, jfd, "lazy distances")
+    assert (tfl == 0).sum() > (tl == 0).sum()
+
+
 @pytest.mark.parametrize("level", [1, 2])
 def test_plan_matches_reference(blocks, level):
     data, blens = blocks

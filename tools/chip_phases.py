@@ -2,9 +2,13 @@
 
     python3 tools/chip_phases.py
 
-Runs chip_smoke.py's 8 MiB corpus through four paths twice — encode,
+Runs chip_smoke.py's 8 MiB corpus through seven paths twice — encode,
 hinted decode, foreign-stream decode (python zlib level 6, forced onto
-the card) and hintless decode — with timers around each phase (each
+the card), hintless decode, level-3 encode with the default (merge)
+emission and with pack="kernel" (packet fusion, K3 compaction, K7
+placement), and the hinted decode of the level-3 stream by the split
+stage A (DT_STAGEAB_PALLAS=0: K8, then the mark automaton and
+compaction in torch) — with timers around each phase (each
 timer synchronises the card before and after, so phases do not
 overlap), prints each path's breakdown from the second repetition,
 then runs each path once more under torch.profiler without the timers
@@ -35,6 +39,7 @@ from deflate_tpu_torch.ops import bitmerge as BM  # noqa: E402
 from deflate_tpu_torch.ops import block_inflate as BI  # noqa: E402
 from deflate_tpu_torch.ops import huffman as H  # noqa: E402
 from deflate_tpu_torch.ops import lz77 as LZ  # noqa: E402
+from deflate_tpu_torch.ops import pack as PK  # noqa: E402
 from deflate_tpu_torch.ops import wave as W  # noqa: E402
 from deflate_tpu_torch.ops import wave_fill as WF  # noqa: E402
 from deflate_tpu_torch.ops import wave_route as WR  # noqa: E402
@@ -44,10 +49,14 @@ from deflate_tpu_torch.runtime import manifest as M  # noqa: E402
 PHASES = [(E, "_encode"), (LZ, "find_matches"), (LZ, "greedy_parse"),
           (H, "huffman_lengths_batch"), (E, "choose_blocks"),
           (E, "_emit_fields_base"), (E, "_emit_merge_batch"),
+          (E, "_emit_fields"), (E, "_packets_of"), (E, "_route_packets"),
+          (E, "_packet_post"), (PK, "pack_blocks"), (E, "_finish_block"),
           (BM, "merge_words"), (E, "block_hints"),
           (W, "parse_headers_host"), (W, "prepare_windows"),
           (WD, "wave_decode_filled"), (W, "wave_decode"),
-          (WS, "decode_mark"), (WR, "route"), (W, "resolve_litval"),
+          (WS, "decode_mark"), (WS, "decode_mark_split"),
+          (WS, "decode_positions"), (W, "chunk_automaton"),
+          (W, "chunk_compact"), (WR, "route"), (W, "resolve_litval"),
           (W, "merge_match_runs"), (WF, "pack_fill_recs"),
           (WF, "fill_matches"), (WD, "skeleton_plan"),
           (WD, "_wave_group"), (WF, "fill_matches_hist"),
@@ -93,12 +102,38 @@ def main() -> int:
         state["s"], state["m"] = M.compress_with_manifest(data, device=dev)
         return None
 
+    def encode_l3():
+        state["s3"], state["m3"] = M.compress_with_manifest(data, level=3,
+                                                            device=dev)
+        return None
+
+    def encode_l3_kernel():
+        blocks, blens = M.split_blocks(data)
+        n = len(blens)
+        out = E.encode_batch_with_hints(
+            torch.from_numpy(blocks).to(dev), torch.from_numpy(blens).to(dev),
+            torch.ones(n, dtype=torch.bool, device=dev), n - 1, 3, 0,
+            pack="kernel")
+        if M.manifest_of(*out, blens)[0] != state["s3"]:
+            raise RuntimeError("level-3 kernel-pack stream differs")
+        return None
+
+    def split_decode():
+        os.environ["DT_STAGEAB_PALLAS"] = "0"
+        try:
+            return M.decode_all(state["s3"], state["m3"], device=dev)
+        finally:
+            del os.environ["DT_STAGEAB_PALLAS"]
+
     paths = {
         "encode": encode,
         "decode": lambda: M.decode_all(state["s"], state["m"], device=dev),
         "foreign decode": lambda: D.decompress(
             raw, len(data), device=dev, force_device=True),
         "hintless decode": lambda: M.decode_all(hs, hm, device=dev),
+        "L3 encode": encode_l3,
+        "L3 kernel-pack encode": encode_l3_kernel,
+        "L3 split stage-A decode": split_decode,
     }
 
     for mod, name in PHASES:
