@@ -29,7 +29,8 @@ launched.  Then each kernel is held against its plain PyTorch version on
 the card, on operands its phase gave it, and both are timed with CUDA
 events; the line of kernel results adds each kernel's bound (bytes moved
 over 3.35 TB/s) and, for K3 and K7, one PyTorch scatter of the same
-work.
+work; K3's also gets the time of its launch alone (kernel_only_ms), and
+K5 is held in full against the torch form of its design.
 
 Prints the card (nvidia-smi name and power limit), MB/s of every phase,
 one JSON line of kernel results, and as its last line
@@ -366,6 +367,18 @@ def main() -> int:
     def timed(fn, reps: int = KERNEL_REPS) -> float:
         return cuda_ms(torch, fn, reps)
 
+    def k3_kernel_only_ms(c) -> float:
+        """dt_route alone (no allocation, no checks) into preallocated
+        outputs: the device side of the wrapper's time."""
+        pays, delta, rounds, left = c
+        B, L = delta.shape
+        outs = [torch.empty_like(delta) for _ in range(len(pays) + 1)]
+        last = torch.empty((B, -(-L // wave_route.TILE)), dtype=torch.int32,
+                           device=dev)
+        return timed(lambda: wave_route.launch(
+            pays, delta, [o.data_ptr() for o in outs[:-1]],
+            outs[-1].data_ptr(), last.data_ptr(), rounds, left))
+
     def k3_library_ms(c) -> float:
         """One torch scatter_ moving both payloads to the same slots."""
         pays, delta, _, left = c
@@ -430,10 +443,17 @@ def main() -> int:
           wave_stagea.decode_mark_kernel, wave_stagea.decode_mark_plain,
           calls["K2"])
     check(f"K3 route ({len(calls['K3'])} calls of phase A; library_ms: "
-          "torch scatter_ to the same slots)", "K3",
+          "torch scatter_ to the same slots; kernel_only_ms: dt_route "
+          "alone into preallocated outputs)", "K3",
           "deflate_tpu_torch/csrc/wave_route.cu",
           "deflate_tpu/ops/wave_route.py:46", wave_route.route_kernel,
           wave_route.route_plain, calls["K3"], library=k3_library_ms)
+    results[-1]["kernel_only_ms"] = sum(k3_kernel_only_ms(c)
+                                        for c in calls["K3"])
+    log(f"K3: wrapper {results[-1]['ms']:.4f} ms, dt_route alone "
+        f"{results[-1]['kernel_only_ms']:.4f} ms, scatter_ "
+        f"{results[-1]['library_ms']:.4f} ms, bound "
+        f"{results[-1]['bound_ms']:.4f} ms")
 
     def prefix(c, n=PLAIN_PREFIX):
         return tuple(x[:n] if isinstance(x, torch.Tensor) else x for x in c)
@@ -450,10 +470,13 @@ def main() -> int:
     lit5, _, nm5, sizes5 = k5[0]
 
     def k5_cmp(got, want, c):
-        # the prefix against the plain version, and beyond it every row
-        # without records (the stored rows) against its literal row,
-        # which is what the plain version returns for such a row
+        # the prefix against the plain version, every row in full against
+        # the torch form of the kernel's design (fill_matches_hist_jump),
+        # and every row without records (the stored rows) against its
+        # literal row, which is what the plain version returns for such a
+        # row
         full = wave_fill.fill_matches_hist_kernel(*k5[0])
+        jump = wave_fill.fill_matches_hist_jump(*k5[0])
         byte = torch.arange(wave_fill.ND, device=dev)[None, :]
         keep = (nm5 == 0)[:, None] & (byte < sizes5[:, None])
 
@@ -461,6 +484,7 @@ def main() -> int:
             return x.contiguous().view(torch.uint8).reshape(x.shape[0], -1)
 
         return max(max_abs_err(torch, got, want),
+                   max_abs_err(torch, as_bytes(full), as_bytes(jump)),
                    max_abs_err(torch, torch.where(keep, as_bytes(full), 0),
                                torch.where(keep, as_bytes(lit5), 0)))
 
@@ -468,7 +492,8 @@ def main() -> int:
     check(f"K5 fill_matches_hist (phase B, {lit5.shape[0]} rows, "
           f"{int(nm5.sum())} records; compared with and plain_ms on the "
           f"first {PLAIN_PREFIX} rows ({flag_counts(flags[:PLAIN_PREFIX])}),"
-          f" and its {int(bare.sum())} rows without records "
+          f" all rows with fill_matches_hist_jump, and its "
+          f"{int(bare.sum())} rows without records "
           f"({flag_counts(flags[bare])}) with their literal rows)", "K5",
           "deflate_tpu_torch/csrc/wave_fill_hist.cu",
           "deflate_tpu/ops/wave_fill.py:384",

@@ -29,17 +29,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
 
-# entry point -> argument types (pointers, ints, then the stream)
+# entry point -> argument types (pointers, integers, then the stream)
 SIGNATURES = {
     "tree": {"dt_tree_depths": [P, P, P, I, I, P]},
     "wave_stagea": {"dt_decode_mark": [P, P, P, P, P, P,
                                        I, I, I, I, P],
                     "dt_decode_positions": [P, P, P, P, I, I, P]},
     "pack": {"dt_pack_blocks": [P, P, P, P, P, I, I, I, P]},
-    "wave_route": {"dt_route": [P, P, P, P, I, I, I, I, I, P]},
+    "wave_route": {"dt_route": [P, P, P, LL, LL, LL, P, P, P, P, P, P,
+                                 I, I, I, I, I, P]},
     "wave_fill": {"dt_fill_matches": [P, P, P, P, I, P]},
-    "wave_fill_hist": {"dt_fill_matches_hist": [P, P, P, P, P, I, P]},
+    "wave_fill_hist": {"dt_fill_matches_hist": [P, P, P, P, P, P, P, P,
+                                                I, P]},
     "block_inflate": {"dt_inflate_blocks": [P, P, P, P, P, P, P,
                                             I, I, P]},
 }
@@ -106,7 +109,11 @@ def lib(name: str) -> ctypes.CDLL:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of `device` as an address, from torch's raw
+    getter (the one its compiler's generated code calls): ~0.1-0.2 µs of
+    host time on the H100's host, against 3-6 µs for
+    torch.cuda.current_stream(device).cuda_stream (tools/route_split.py)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, what: str) -> None:

@@ -1,135 +1,242 @@
-// Kernel K5: ordered LZ77 match fill with a 32 KiB cross-block history.
+// Kernel K5: ordered LZ77 match fill with a 32 KiB cross-row history,
+// resolved by pointer jumping over the whole plan.
 //
 // Replaces deflate_tpu/ops/wave_fill.py::_kernel_seq (wrapper
 // fill_matches_hist), which ran the virtual blocks of a foreign-stream
 // plan in grid order on the TPU scalar core and slid an SMEM window
 // [last 32 KiB of output | current block] left by each block's output
 // size.  Plain version: deflate_tpu_torch/ops/wave_fill.py::
-// fill_matches_hist_plain.
+// fill_matches_hist_plain; the torch mirror of this design is
+// fill_matches_hist_jump there.
 //
 // Contract.  Rows are virtual blocks in stream order: litwords [B, 8192]
 // int32 (literal bytes placed), recs [B, 2*NM] raw interleaved records
 // (r0 = opos | len3 << 16, r1 = dist; len3 is 16 bits), nmatch [B],
-// sizes [B] output bytes per row.  A record copies len3 + 3 bytes to
-// row position opos from `dist` bytes back in the stream's output, which
-// may lie in any earlier row (rows can be a few bytes long, so the
-// history spans many rows).  Before the first output byte the history
-// reads as zeros; a distance reaching before the 32 KiB window is
-// clamped to its first byte, as the reference's max(p - dist, 0) is;
-// bytes past a row's 32 KiB are dropped.  Out row b is valid up to
-// sizes[b] bytes.
+// sizes [B] output bytes per row.  In window coordinates a record at row
+// byte opos has p = ND + opos and src = max(p - dist, 0), and writes
+// n = min(len3 + 3, ND - opos) bytes out[p + k] = win[src + k % (p - src)]
+// (skipped when p - src <= 0 or n <= 0).  Window bytes before the row
+// are the stream's earlier valid bytes (each earlier row's first sizes
+// bytes), zeros before the stream's first byte; the row's own bytes,
+// its tail included, are its own.  Every entry of the output equals the
+// serial plain version, tails past sizes[b] included.
 //
-// Design.  Nothing carries between CTAs on this card, so ONE thread
-// block runs all rows in order.  Its 64 KiB of dynamic shared memory is
-// a byte ring: the current row occupies [base, base + 32 KiB) and the
-// history the 32 KiB before it (mod 64 KiB), so no byte is ever moved to
-// slide the window — base advances by sizes[g], which need not be a
-// multiple of 4.  Per row: all 1024 threads place the literal row into
-// the ring, warp 0 walks the records (32 at a time by one coalesced
-// load, broadcast by shuffle; per record the lanes write 32 bytes per
-// step by out[p + k] = out[src + k % d], whose sources all precede p, so
-// a record's bytes do not depend on each other; records are ordered by
-// __syncwarp), then all threads copy the row out.
-//
-// What bounds it here: the serial chain of records across the whole
-// stream (a few thousand per row, one warp, shared-memory latency per
-// record), not bandwidth: 64 KiB per row plus 8 B per record is a few
-// microseconds of HBM time for the whole plan.  Overlapping the
-// prefix of independent rows, or splitting the walk by history
-// dependency, is later work.
+// What bounds it here: the chain of records is serial only by data
+// dependency — every source byte precedes its target — so the first
+// version, one CTA walking 592,539 records in order, was latency-bound
+// at ~198 ns a record on one SM.  Here each output byte of the padded
+// plan [B, ND] (plus one ZERO sentinel, index B * ND, that reads 0)
+// holds a pointer to the byte it copies:
+//   (a) row starts: exclusive prefix of the clamped sizes (one CTA);
+//   (b) every pointer starts as itself (its literal byte); one warp per
+//       record writes, for each of its n bytes, the padded index of its
+//       source: the same row at or past the row's window start, else the
+//       earlier row that holds stream byte starts[b] - ND + w (binary
+//       search over the row starts; zero-size rows are never found), or
+//       ZERO before the stream.  Records of a row do not overlap, so
+//       each pointer has one writer;
+//   (c) pointer jumping, ptr[x] = ptr[ptr[x]], in place over all
+//       positions and all SMs: any value read is an ancestor on x's
+//       chain, so after k rounds every pointer is 2^k hops on or at its
+//       chain's end.  A pointer found to end its chain is stored
+//       complemented (negative) and skipped from then on.  The wrapper
+//       launches a fixed ceil(log2(B * ND + 1)) rounds, each of which
+//       returns at once when the round before changed nothing (a device
+//       flag, so the host never waits); phase B's 509-byte repeats
+//       (chains of ~4 k hops) settle in about 13;
+//   (d) gather: each output word takes its 4 bytes from the literal rows
+//       at the chain ends (0 at ZERO), coalesced.
+// The traffic is a few passes over the 4-byte pointers (50 MB at 384
+// rows, about the size of L2) and the random reads of the jumps.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int ND = 32768;        // output bytes per row
-constexpr int OW = ND / 4;       // output words per row
 constexpr int NM = 11264;        // record slots per row
-constexpr int RING = 2 * ND;     // history + current row, bytes
-constexpr unsigned MASK = RING - 1;
-constexpr int THREADS = 1024;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int SPLIT = 4;         // CTAs per row in the record pass
+constexpr int MAX_ROUNDS = 64;   // flag words the wrapper allocates
 
-__global__ void fill_hist_kernel(const int* __restrict__ lit,
-                                 const int* __restrict__ recs,
-                                 const int* __restrict__ nmatch,
-                                 const int* __restrict__ sizes,
-                                 int* __restrict__ out, int B) {
-  extern __shared__ int ring_words[];
-  unsigned char* ring = reinterpret_cast<unsigned char*>(ring_words);
-  for (int i = threadIdx.x; i < RING / 4; i += blockDim.x) ring_words[i] = 0;
-  unsigned base = 0;               // ring position of the row's byte 0
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// (a) starts[b] = sum of clamped sizes before row b; starts[B] = total
+__global__ void starts_kernel(const int* __restrict__ sizes,
+                              int* __restrict__ starts, int B) {
+  __shared__ int warp_sum[32];
+  const int per = (B + blockDim.x - 1) / blockDim.x;
+  const int lo = threadIdx.x * per, hi = min(lo + per, B);
+  int s = 0;
+  for (int i = lo; i < hi; ++i) s += clampi(sizes[i], 0, ND);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int x = s;                                    // inclusive warp scan
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sum[w] = x;
   __syncthreads();
-
-  for (int g = 0; g < B; ++g) {
-    const int* lg = lit + (int64_t)g * OW;
-    for (int i = threadIdx.x; i < OW; i += blockDim.x) {
-      const unsigned w = (unsigned)lg[i];
-      const unsigned p = base + 4u * i;
-      ring[p & MASK] = (unsigned char)w;
-      ring[(p + 1) & MASK] = (unsigned char)(w >> 8);
-      ring[(p + 2) & MASK] = (unsigned char)(w >> 16);
-      ring[(p + 3) & MASK] = (unsigned char)(w >> 24);
+  if (w == 0) {
+    const int nw = blockDim.x >> 5;
+    int v = lane < nw ? warp_sum[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += y;
     }
-    __syncthreads();
+    warp_sum[lane] = v;
+  }
+  __syncthreads();
+  int acc = x - s + (w ? warp_sum[w - 1] : 0);
+  for (int i = lo; i < hi; ++i) {
+    starts[i] = acc;
+    acc += clampi(sizes[i], 0, ND);
+  }
+  if (threadIdx.x == blockDim.x - 1) starts[B] = acc;
+}
 
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x;
-      int nm = nmatch[g];
-      nm = nm < 0 ? 0 : (nm > NM ? NM : nm);
-      const int* rb = recs + (int64_t)g * 2 * NM;
-      for (int b0 = 0; b0 < nm; b0 += 32) {
-        const int m = b0 + lane;
-        const int r0l = m < nm ? rb[2 * m] : 0;
-        const int r1l = m < nm ? rb[2 * m + 1] : 0;
-        const int cnt = nm - b0 < 32 ? nm - b0 : 32;
-        for (int j = 0; j < cnt; ++j) {
-          const unsigned r0 = (unsigned)__shfl_sync(0xffffffffu, r0l, j);
-          const int dist = __shfl_sync(0xffffffffu, r1l, j);
-          const int opos = (int)(r0 & 0xFFFFu);
-          const int rem = (int)((r0 >> 16) & 0xFFFFu) + 3;
-          // window coordinates: byte ND is the row's first byte
-          const int p = ND + opos;
-          const int src = p - dist > 0 ? p - dist : 0;
-          const int d = p - src;
-          const int n = rem < ND - opos ? rem : ND - opos;
-          if (d > 0 && n > 0) {
-            const unsigned wdst = base + (unsigned)opos;
-            const unsigned wsrc = base - (unsigned)ND + (unsigned)src;
-            for (int k = lane; k < n; k += 32)
-              ring[(wdst + k) & MASK] = ring[(wsrc + (k < d ? k : k % d))
-                                             & MASK];
+// (b) every pointer to itself; N = B * ND is a multiple of 4
+__global__ void init_kernel(int* __restrict__ ptr, int N) {
+  const int stride = gridDim.x * blockDim.x;
+  int4* p4 = reinterpret_cast<int4*>(ptr);
+  for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < N / 4;
+       g += stride)
+    p4[g] = make_int4(4 * g, 4 * g + 1, 4 * g + 2, 4 * g + 3);
+  if (blockIdx.x == 0 && threadIdx.x == 0) ptr[N] = N;     // ZERO
+}
+
+// (b) each record's bytes point at their sources; one warp per record
+__global__ void records_kernel(const int* __restrict__ recs,
+                               const int* __restrict__ nmatch,
+                               const int* __restrict__ starts,
+                               int* __restrict__ ptr, int B) {
+  const int b = blockIdx.x / SPLIT;
+  const int lane = threadIdx.x & 31;
+  const int wr = (blockIdx.x % SPLIT) * WARPS + (threadIdx.x >> 5);
+  const int nm = clampi(nmatch[b], 0, NM);
+  const int* rb = recs + (long long)b * 2 * NM;
+  const int rs = starts[b];
+  const int rowbase = b * ND;
+  const int zero = B * ND;
+  for (int m = wr; m < nm; m += SPLIT * WARPS) {
+    const unsigned r0 = (unsigned)rb[2 * m];
+    const int dist = rb[2 * m + 1];
+    const int opos = (int)(r0 & 0xFFFFu);
+    const int n = min((int)((r0 >> 16) & 0xFFFFu) + 3, ND - opos);
+    const long long p = ND + opos;
+    const long long srcl = p - (long long)dist;
+    const int src = srcl > 0 ? (int)srcl : 0;
+    const int d = (int)p - src;
+    if (d <= 0 || n <= 0) continue;
+    for (int k = lane; k < n; k += 32) {
+      const int w = src + (k < d ? k : k % d);
+      int s;
+      if (w >= ND) {
+        s = rowbase + (w - ND);                 // the row's own byte
+      } else {
+        const int t = rs - ND + w;              // stream byte before the row
+        if (t < 0) {
+          s = zero;
+        } else {
+          // the last row r < b with starts[r] <= t holds t (t < starts[b])
+          int lo = 0, hi = b - 1;
+          if (starts[hi] <= t) {
+            lo = hi;
+          } else {
+            while (lo < hi) {
+              const int mid = (lo + hi + 1) >> 1;
+              if (starts[mid] <= t) lo = mid; else hi = mid - 1;
+            }
           }
-          __syncwarp();
+          s = lo * ND + (t - starts[lo]);
         }
       }
+      ptr[rowbase + opos + k] = s;
     }
-    __syncthreads();
+  }
+}
 
-    int* og = out + (int64_t)g * OW;
-    for (int i = threadIdx.x; i < OW; i += blockDim.x) {
-      const unsigned p = base + 4u * i;
-      og[i] = (int)((unsigned)ring[p & MASK]
-                    | ((unsigned)ring[(p + 1) & MASK] << 8)
-                    | ((unsigned)ring[(p + 2) & MASK] << 16)
-                    | ((unsigned)ring[(p + 3) & MASK] << 24));
+// one jump for x whose pointer is v: the new value, or v if x is done
+__device__ __forceinline__ int jump(const int* ptr, int x, int v) {
+  if (v < 0 || v == x) return v;                // done, or a literal byte
+  const int q = ptr[v];
+  if (q < 0) return q;                          // v's chain end, complemented
+  return q == v ? ~v : q;                       // v is a chain end
+}
+
+// (c) one round over all N positions (the ZERO sentinel never moves)
+__global__ void jump_kernel(int* ptr, int* flags, int round, int N) {
+  if (round > 0 && flags[round - 1] == 0) return;     // fixed point
+  const int stride = gridDim.x * blockDim.x;
+  bool changed = false;
+  int4* p4 = reinterpret_cast<int4*>(ptr);
+  for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < N / 4;
+       g += stride) {
+    const int4 v = p4[g];
+    const int4 u = make_int4(jump(ptr, 4 * g, v.x), jump(ptr, 4 * g + 1, v.y),
+                             jump(ptr, 4 * g + 2, v.z),
+                             jump(ptr, 4 * g + 3, v.w));
+    if (u.x != v.x || u.y != v.y || u.z != v.z || u.w != v.w) {
+      p4[g] = u;                                // only this thread writes g
+      changed = true;
     }
-    int s = sizes[g];
-    s = s < 0 ? 0 : (s > ND ? ND : s);
-    base = (base + (unsigned)s) & MASK;
-    __syncthreads();
+  }
+  if (__any_sync(0xffffffffu, changed) && (threadIdx.x & 31) == 0)
+    flags[round] = 1;
+}
+
+__device__ __forceinline__ unsigned byte_at(const unsigned char* lit, int v,
+                                            int zero) {
+  const int t = v < 0 ? ~v : v;
+  return t == zero ? 0u : (unsigned)lit[t];
+}
+
+// (d) out word g = the 4 bytes at the chain ends of positions 4g..4g+3
+__global__ void gather_kernel(const int* __restrict__ ptr,
+                              const int* __restrict__ lit,
+                              int* __restrict__ out, int N) {
+  const int stride = gridDim.x * blockDim.x;
+  const unsigned char* lb = reinterpret_cast<const unsigned char*>(lit);
+  const int4* p4 = reinterpret_cast<const int4*>(ptr);
+  for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < N / 4;
+       g += stride) {
+    const int4 v = p4[g];
+    out[g] = (int)(byte_at(lb, v.x, N) | (byte_at(lb, v.y, N) << 8)
+                   | (byte_at(lb, v.z, N) << 16)
+                   | (byte_at(lb, v.w, N) << 24));
   }
 }
 
 }  // namespace
 
+// ptr: int32 [B * ND + 1], starts: int32 [B + 1], flags: int32
+// [MAX_ROUNDS] scratch, all allocated by the wrapper; B * ND < 2^31.
 extern "C" int dt_fill_matches_hist(const void* lit, const void* recs,
                                     const void* nmatch, const void* sizes,
-                                    void* out, int B, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      fill_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, RING);
+                                    void* out, void* ptr, void* starts,
+                                    void* flags, int B, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int N = B * ND;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  fill_hist_kernel<<<1, THREADS, RING, (cudaStream_t)stream>>>(
-      (const int*)lit, (const int*)recs, (const int*)nmatch,
-      (const int*)sizes, (int*)out, B);
+  int rounds = 0;
+  while (rounds < MAX_ROUNDS && (1LL << rounds) < (long long)N + 1) ++rounds;
+  const int grid = sms * 8;
+  e = cudaMemsetAsync(flags, 0, sizeof(int) * rounds, st);
+  if (e != cudaSuccess) return (int)e;
+  starts_kernel<<<1, 1024, 0, st>>>((const int*)sizes, (int*)starts, B);
+  init_kernel<<<grid, THREADS, 0, st>>>((int*)ptr, N);
+  records_kernel<<<B * SPLIT, THREADS, 0, st>>>(
+      (const int*)recs, (const int*)nmatch, (const int*)starts, (int*)ptr, B);
+  for (int r = 0; r < rounds; ++r)
+    jump_kernel<<<grid, THREADS, 0, st>>>((int*)ptr, (int*)flags, r, N);
+  gather_kernel<<<grid, THREADS, 0, st>>>((const int*)ptr, (const int*)lit,
+                                          (int*)out, N);
   return (int)cudaGetLastError();
 }

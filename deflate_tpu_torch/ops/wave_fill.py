@@ -21,7 +21,9 @@ K5 (fill_matches_hist, replacing `_kernel_seq`, wrapper
 `fill_matches_hist`) fills the virtual blocks of a foreign-stream plan
 in stream order: records arrive RAW, interleaved (opos | len3<<16, dist)
 as models/wave_decoder._wave_group stacks them, and a record may reach
-up to 32 KiB back into the output of any earlier row.
+up to 32 KiB back into the output of any earlier row.  The kernel
+resolves the whole plan at once by pointer jumping over its bytes;
+fill_matches_hist_jump is that design in torch.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ from deflate_tpu_torch.utils.bits import I32, srl
 
 OW = ND // 4                 # output words per block
 launches = 0                 # K4 launches
-hist_launches = 0            # K5 launches
+hist_launches = 0            # K5 launches (wrapper calls)
+HIST_MAX_ROUNDS = 64         # K5's jump-round flags (csrc/wave_fill_hist.cu)
 
 
 def pack_fill_recs(rec0, rec1):
@@ -142,6 +145,58 @@ def fill_matches_hist_plain(litwords, recs, nmatch, sizes):
     return out.view(I32).reshape(B, OW)
 
 
+def fill_matches_hist_jump(litwords, recs, nmatch, sizes):
+    """K5's design in torch (csrc/wave_fill_hist.cu): the same result as
+    fill_matches_hist_plain for rows whose records do not overlap.  Every
+    byte of the padded plan [B, ND], plus a ZERO sentinel at B * ND that
+    reads 0, points at the byte it copies: itself for a literal byte,
+    else the record's source — its own row at or past the window's row
+    start, else the earlier row holding that stream byte, or ZERO before
+    the stream.  Pointers jump (ptr[x] = ptr[ptr[x]]; a pointer known to
+    end its chain is stored complemented) until nothing changes; each
+    output byte is the literal byte at its chain's end."""
+    B = litwords.shape[0]
+    dev = litwords.device
+    N = B * ND
+    I64 = torch.int64
+    size = sizes.to(I64).clamp(0, ND)
+    starts = torch.cumsum(size, 0) - size
+    live = (torch.arange(NM, device=dev)[None, :]
+            < nmatch.to(I64).clamp(0, NM)[:, None])
+    r = recs.to(I64).reshape(B, NM, 2)
+    row = torch.arange(B, device=dev)[:, None].expand(B, NM)[live]
+    r0, dist = r[..., 0][live], r[..., 1][live]
+    opos = r0 & 0xFFFF
+    n = torch.minimum(((r0 >> 16) & 0xFFFF) + 3, ND - opos)
+    p = ND + opos
+    src = (p - dist).clamp(min=0)
+    d = p - src
+    ok = (d > 0) & (n > 0)
+    row, opos, n, src, d = row[ok], opos[ok], n[ok], src[ok], d[ok]
+    rec = torch.repeat_interleave(torch.arange(len(n), device=dev), n)
+    k = torch.arange(len(rec), device=dev) - (torch.cumsum(n, 0) - n)[rec]
+    w = src[rec] + k % d[rec]                    # window byte
+    brow = row[rec]
+    t = starts[brow] - ND + w                    # stream byte, if w < ND
+    hrow = (torch.searchsorted(starts, t, right=True) - 1).clamp(min=0)
+    source = torch.where(w >= ND, brow * ND + w - ND,
+                         torch.where(t < 0, N, hrow * ND + t - starts[hrow]))
+    ptr = torch.arange(N + 1, device=dev)
+    ptr[brow * ND + opos[rec] + k] = source
+    x = torch.arange(N + 1, device=dev)
+    while True:
+        q = ptr[ptr.clamp(min=0)]
+        nxt = torch.where((ptr < 0) | (ptr == x), ptr,
+                          torch.where(q < 0, q, torch.where(q == ptr, ~ptr, q)))
+        if torch.equal(nxt, ptr):
+            break
+        ptr = nxt
+    end = torch.where(ptr < 0, ~ptr, ptr)[:N]
+    lit = torch.cat([litwords.contiguous().view(torch.uint8).reshape(-1),
+                     torch.zeros(1, dtype=torch.uint8, device=dev)])
+    return lit[end].view(I32).reshape(B, OW)
+
+
 def fill_matches_hist_kernel(litwords, recs, nmatch, sizes):
     """K5 on the card: same contract as fill_matches_hist_plain."""
     global hist_launches
@@ -155,11 +210,18 @@ def fill_matches_hist_kernel(litwords, recs, nmatch, sizes):
             or nmatch.shape != (B,) or sizes.shape != (B,):
         raise ValueError("hist fill operands must be litwords [B, 8192], "
                          "raw records [B, 2*NM], nmatch [B], sizes [B]")
+    if B * ND >= 2**31 - 1:
+        raise ValueError(f"hist fill of {B} rows: byte pointers exceed "
+                         "int32")
     out = torch.empty_like(litwords)
     if B:
+        ptr = torch.empty(B * ND + 1, dtype=I32, device=dev)
+        starts = torch.empty(B + 1, dtype=I32, device=dev)
+        flags = torch.empty(HIST_MAX_ROUNDS, dtype=I32, device=dev)
         err = _build.lib("wave_fill_hist").dt_fill_matches_hist(
             litwords.data_ptr(), recs.data_ptr(), nmatch.data_ptr(),
-            sizes.data_ptr(), out.data_ptr(), B, _build.stream_ptr(dev))
+            sizes.data_ptr(), out.data_ptr(), ptr.data_ptr(),
+            starts.data_ptr(), flags.data_ptr(), B, _build.stream_ptr(dev))
         _build.check(err, "dt_fill_matches_hist")
         hist_launches += 1
     return out

@@ -1,4 +1,4 @@
-"""Kernel K3: stable monotone routing as a direct scatter
+"""Kernel K3: stable monotone routing, one 1024-slot tile per CTA
 (csrc/wave_route.cu).
 
 Replaces deflate_tpu/ops/wave_route.py (`_mk_kernel`, wrapper
@@ -19,7 +19,10 @@ from deflate_tpu_torch import _build
 from deflate_tpu_torch.ops import wave as W
 from deflate_tpu_torch.utils.bits import I32
 
+MAXP = 3                     # payloads per call
+TILE = 1024                  # slots per CTA (csrc/wave_route.cu)
 launches = 0
+_dt_route = None             # the loaded entry point
 
 
 def route_plain(payloads, delta, rounds: int, left: bool = True):
@@ -30,27 +33,54 @@ def route_plain(payloads, delta, rounds: int, left: bool = True):
             torch.where(landed, 0, -1).to(I32))
 
 
-def route_kernel(payloads, delta, rounds: int, left: bool = True):
-    """K3 on the card: same contract as route_plain."""
-    global launches
-    pays = torch.stack([p.to(I32) for p in payloads]).contiguous()
-    delta = delta.to(I32).contiguous()
-    dev = _build.require_cuda(pays, delta)
+def launch(payloads, delta, out_ptrs, dout_ptr, last_ptr, rounds: int,
+           left: bool):
+    """One dt_route call on operands route_kernel has checked, into
+    outputs at the given device addresses (P payload planes and dout,
+    each [B, L] contiguous, and B * ceil(L / TILE) words of scratch);
+    counts nothing (timing runs call it directly)."""
+    global _dt_route
+    if _dt_route is None:
+        _dt_route = _build.lib("wave_route").dt_route
     B, L = delta.shape
-    P = pays.shape[0]
-    if pays.shape[1:] != (B, L) or not 0 <= rounds <= 31:
-        raise ValueError(f"bad route operands {tuple(pays.shape)} vs "
-                         f"{(B, L)}, rounds={rounds}")
-    out = torch.zeros_like(pays)
-    dout = torch.full((B, L), -1, dtype=I32, device=dev)
-    if B and L:
-        err = _build.lib("wave_route").dt_route(
-            pays.data_ptr(), delta.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), P, B, L, rounds, int(left),
-            _build.stream_ptr(dev))
-        _build.check(err, "dt_route")
+    pad = [0] * (MAXP - len(payloads))
+    err = _dt_route(*[p.data_ptr() for p in payloads], *pad,
+                    *[p.stride(0) for p in payloads], *pad,
+                    delta.data_ptr(), *out_ptrs, *pad, dout_ptr, last_ptr,
+                    len(payloads), B, L, rounds, int(left),
+                    _build.stream_ptr(delta.device))
+    _build.check(err, "dt_route")
+
+
+def route_kernel(payloads, delta, rounds: int, left: bool = True):
+    """K3 on the card: same contract as route_plain.  Payloads are int32
+    [B, L] rows with unit column stride (any row stride); delta is
+    contiguous int32 [B, L].  One allocation holds the P outputs, dout
+    and the kernel's scratch; the outputs and dout are views of it."""
+    global launches
+    dev = delta.device
+    B, L = delta.shape
+    P = len(payloads)
+    if not (delta.is_cuda and delta.dtype == I32 and delta.is_contiguous()
+            and 1 <= P <= MAXP and 0 <= rounds <= 31):
+        raise ValueError(f"route takes contiguous int32 CUDA delta, 1-{MAXP} "
+                         f"payloads and 0-31 rounds; got {delta.dtype} on "
+                         f"{dev}, {P} payloads, rounds={rounds}")
+    for p in payloads:
+        if p.device != dev or p.dtype != I32 or p.shape != delta.shape \
+                or (L > 1 and p.stride(1) != 1):
+            raise ValueError(f"route payload {p.dtype} {tuple(p.shape)} "
+                             f"on {p.device} does not match delta "
+                             f"{(B, L)} on {dev} with unit column stride")
+    n = (P + 1) * B * L
+    buf = torch.empty(n + B * -(-L // TILE), dtype=I32, device=dev)
+    *outs, dout = buf[:n].view(P + 1, B, L).unbind(0)
+    if n:
+        base, plane = buf.data_ptr(), 4 * B * L
+        launch(payloads, delta, [base + k * plane for k in range(P)],
+               base + P * plane, base + 4 * n, rounds, left)
         launches += 1
-    return list(out.unbind(0)), dout
+    return outs, dout
 
 
 def route(payloads, delta, rounds: int, left: bool = True):

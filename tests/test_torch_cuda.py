@@ -13,6 +13,7 @@ import torch
 
 import deflate_tpu_torch as D
 from deflate_tpu_torch.models import encoder as E
+from deflate_tpu_torch.models import wave_decoder as WD
 from deflate_tpu_torch.ops import block_inflate as BI
 from deflate_tpu_torch.ops import huffman as H
 from deflate_tpu_torch.ops import pack as PK
@@ -22,9 +23,9 @@ from deflate_tpu_torch.ops import wave_fill as WF
 from deflate_tpu_torch.ops import wave_route as WR
 from deflate_tpu_torch.ops import wave_stagea as WS
 from deflate_tpu_torch.runtime import manifest as M
-from torch_helpers import (NM, assert_same, corpus,  # noqa: F401
-                           cuda_device, fill_case, hist_case,
-                           monotone_instance)
+from torch_helpers import (NM, ROUTE_CASES, assert_same,  # noqa: F401
+                           corpus, cuda_device, fill_case, hist_case,
+                           monotone_instance, route_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +84,29 @@ def test_k3_kernel_matches_plain(cuda_device):
         assert_same(gb, wb, "payload 1")
 
 
+@pytest.mark.parametrize("P,left,B,L,rounds,kind",
+                         [pytest.param(*c[1:], id=c[0]) for c in ROUTE_CASES])
+@pytest.mark.parametrize("pad", [0, 4, 7], ids=["rows", "stride+4",
+                                                "stride+7"])
+def test_k3_kernel_cases(cuda_device, P, left, B, L, rounds, kind, pad):
+    """Every ROUTE_CASES entry, with the payloads as contiguous rows and
+    as views into wider rows (16-byte aligned or not)."""
+    pays, delta = route_case(P + 10 * B, P, left, B, L, rounds, kind)
+    tp = []
+    for p in pays:
+        wide = torch.zeros((B, L + pad), dtype=torch.int32,
+                           device=cuda_device)
+        wide[:, :L] = torch.from_numpy(p).to(cuda_device)
+        tp.append(wide[:, :L])
+    td = torch.from_numpy(delta).to(cuda_device)
+    gp, gd = WR.route_kernel(tp, td, rounds, left)
+    wp, wd = WR.route_plain(tp, td, rounds, left)
+    torch.cuda.synchronize()
+    assert_same(gd, wd, "dout")
+    for i, (g, w) in enumerate(zip(gp, wp)):
+        assert_same(g, w, f"payload {i}")
+
+
 def test_k4_kernel_matches_plain(cuda_device):
     lit, rec0, rec1, nmatch = fill_case(8)
     recs = WF.pack_fill_recs(torch.from_numpy(rec0), torch.from_numpy(rec1))
@@ -113,6 +137,32 @@ def test_k5_kernel_matches_plain(cuda_device):
     want = WF.fill_matches_hist_plain(*args)
     torch.cuda.synchronize()
     assert_same(got, want, "K5")
+
+
+def test_k5_kernel_on_a_long_plan(cuda_device, monkeypatch):
+    """64 rows of a zlib-6 stream of 509-byte repeats (chains of ~4 k
+    hops through earlier rows): the kernel against the plain version and
+    the torch jump form on full rows, and the decode against the data."""
+    rng = np.random.default_rng(23)
+    pat = rng.integers(0, 256, 509, dtype=np.uint8)
+    data = np.tile(pat, (64 << 15) // 509 + 1)[:64 << 15].tobytes()
+    raw = zlib.compress(data, 6)[2:-4]
+    calls = []
+    kernel = WF.fill_matches_hist
+
+    def capture(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    monkeypatch.setattr(WF, "fill_matches_hist", capture)
+    out, err = WD.inflate_wave_planned(raw, WD.skeleton_plan(raw),
+                                       device=cuda_device)
+    assert out == data and not err.any()
+    assert len(calls) == 1 and calls[0][0].shape[0] >= 64
+    got = WF.fill_matches_hist_kernel(*calls[0])
+    torch.cuda.synchronize()
+    assert_same(got, WF.fill_matches_hist_plain(*calls[0]), "K5 vs plain")
+    assert_same(got, WF.fill_matches_hist_jump(*calls[0]), "K5 vs jump")
 
 
 def test_k6_kernel_matches_plain(cuda_device):

@@ -4,7 +4,9 @@ fill_matches_hist's plain version equals deflate_tpu's fill_matches_hist
 match reaching back across four earlier short rows, the 32 KiB maximum
 distance, a zero-size row and odd sizes — and inflate_wave_planned
 returns the same bytes and error flags as the reference on foreign zlib
-streams (history, overlap, stored blocks, matches into stored bytes)."""
+streams (history, overlap, stored blocks, matches into stored bytes).
+fill_matches_hist_jump, the torch form of the CUDA kernel's pointer
+jumping, equals the plain version on full rows, tails included."""
 import zlib
 
 import jax.numpy as jnp
@@ -98,3 +100,54 @@ def test_inflate_wave_planned_matches_reference(name):
         assert ((flags & 4) > 0).any()
     if name == "stored":
         assert ((flags & 1) > 0).any()
+
+
+def _hist_args():
+    lit, rec0, rec1, nmatch, sizes = hist_case()
+    recs = np.stack([rec0, rec1], 2).reshape(len(sizes), 2 * NM)
+    return lit, recs, nmatch, sizes
+
+
+def test_k5_jump_equals_plain_on_full_rows():
+    args = [torch.from_numpy(x) for x in _hist_args()]
+    got = WF.fill_matches_hist_jump(*args)
+    want = WF.fill_matches_hist_plain(*args)
+    assert (got.numpy() == want.numpy()).all()
+
+
+def test_k5_jump_matches_fill_matches_hist_interpret():
+    lit, recs, nmatch, sizes = _hist_args()
+    B = len(sizes)
+    want = JWF.fill_matches_hist(jnp.asarray(lit), jnp.asarray(recs),
+                                 jnp.asarray(nmatch), jnp.asarray(sizes), B,
+                                 interpret=True)
+    got = WF.fill_matches_hist_jump(
+        *[torch.from_numpy(x) for x in (lit, recs, nmatch, sizes)])
+    g = got.numpy().view(np.uint8).reshape(B, -1)
+    w = np.asarray(want).view(np.uint8).reshape(B, -1)
+    for b in range(B):
+        assert (g[b, :sizes[b]] == w[b, :sizes[b]]).all(), b
+
+
+@pytest.mark.parametrize("name", ["history", "overlap", "stored",
+                                  "into_stored"])
+def test_k5_jump_decodes_foreign_streams(name, monkeypatch):
+    """The planned decode with the jump form in place of the ordered fill
+    gives the stream's bytes, and the jump form equals the plain version
+    on every row of the plan's fill."""
+    data, enc = _foreign(name)
+    calls = []
+
+    def jump(*args):
+        calls.append(args)
+        return WF.fill_matches_hist_jump(*args)
+
+    monkeypatch.setattr(WF, "fill_matches_hist", jump)
+    got, err = WD.inflate_wave_planned(enc, WD.skeleton_plan(enc),
+                                       device="cpu")
+    assert got == data and not err.any()
+    assert len(calls) <= 1
+    for args in calls:
+        want = WF.fill_matches_hist_plain(*args)
+        assert (WF.fill_matches_hist_jump(*args).numpy()
+                == want.numpy()).all()

@@ -77,6 +77,53 @@ def monotone_instance(rng, B, L, left):
     return pays, delta
 
 
+# K3 cases: (id, payloads P, left, B, L, rounds, kind).  "bounded":
+# non-decreasing deltas below 2**rounds with strictly increasing
+# destinations, plus slots whose delta is a multiple of 2**rounds (not
+# routed), and row 0 without an element; "compact": the encoder's packet
+# compaction (live lanes of the first 32769 to their rank, NPK lanes).
+# The longest row is stage D's at the largest bucket (W64 4224 x CCAP).
+ROUTE_CASES = [
+    ("p1_left_odd_L", 1, True, 3, 3001, 12, "bounded"),
+    ("p2_right_odd_L", 2, False, 3, 3001, 12, "bounded"),
+    ("p3_left_unrouted", 3, True, 3, 4096, 9, "bounded"),
+    ("p3_right_unrouted", 3, False, 3, 4096, 9, "bounded"),
+    ("p1_right_L1024", 1, False, 2, 1024, 10, "bounded"),
+    ("p3_packets_npk", 3, True, 2, 33 * 1024, 16, "compact"),
+    ("p2_left_longest_row", 2, True, 2, 4224 * 16, 17, "bounded"),
+]
+
+
+def route_case(seed, P, left, B, L, rounds, kind):
+    """Payloads (P int32 [B, L]) and delta int32 [B, L] of a ROUTE_CASES
+    entry."""
+    rng = np.random.default_rng(seed)
+    delta = np.full((B, L), -1, np.int64)
+    cap = (1 << rounds) - 1
+    for b in range(1, B):
+        if kind == "compact":
+            live = np.nonzero(rng.random(32769) < 0.3)[0]
+            delta[b, live] = live - np.arange(len(live))
+            continue
+        occ = np.sort(rng.choice(L, size=int(rng.integers(1, L // 2)),
+                                 replace=False))
+        gaps = np.diff(occ)
+        # delta_{i+1} - delta_i < occ_{i+1} - occ_i keeps leftward
+        # destinations strictly increasing; rightward ones always are
+        inc = rng.integers(0, np.maximum(gaps, 1)) if left else \
+            rng.integers(0, 3, len(gaps))
+        d0 = int(rng.integers(0, min(occ[0], cap) + 1)) if left else \
+            int(rng.integers(0, 4))
+        d = np.minimum(np.concatenate([[d0], d0 + np.cumsum(inc)]), cap)
+        delta[b, occ] = d
+        free = np.nonzero(delta[b] < 0)[0]
+        far = rng.choice(free, size=min(len(free), 5), replace=False)
+        delta[b, far] = rng.integers(1, 4, len(far)) << rounds
+    pays = [rng.integers(-2**31, 2**31, (B, L)).astype(np.int32)
+            for _ in range(P)]
+    return pays, delta.astype(np.int32)
+
+
 def fill_case(B):
     """Every distance class (1, 2, 3 periodic; 4-8 overlapping; far),
     every word phase, short and long lengths (the reference's
