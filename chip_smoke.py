@@ -29,13 +29,16 @@ launched.  Then each kernel is held against its plain PyTorch version on
 the card, on operands its phase gave it, and both are timed with CUDA
 events; the line of kernel results adds each kernel's bound (bytes moved
 over 3.35 TB/s) and, for K3 and K7, one PyTorch scatter of the same
-work; K3's also gets the time of its launch alone (kernel_only_ms), and
-K5 is held in full against the torch form of its design.
+work; K3's also gets the time of its launch alone (kernel_only_ms); K4
+and K5 are held on every row against the torch forms of their designs
+(K4's rows must hold records in order without overlap); K6's adds its
+time on each corpus quarter's 64 blocks alone (quarter_ms).
 
 Prints the card (nvidia-smi name and power limit), MB/s of every phase,
 one JSON line of kernel results, and as its last line
-``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
-without a CUDA device or when any phase fails.
+``{"ok": true, "device": {...}}``; every line with a measured number
+names the card and its power limit.  Exits non-zero, printing no
+result, without a CUDA device or when any phase fails.
 """
 from __future__ import annotations
 
@@ -55,6 +58,8 @@ KERNEL_REPS = 20
 PLAIN_PREFIX = 8              # rows the per-record plain versions run
 K6_PICK = (0, 1, 64, 65, 128, 129, 192, 193)   # two blocks of each corpus
                                                # quarter: K6's plain blocks
+QUARTERS = ("text", "repeats", "words", "random")   # make_corpus's order
+FILL_SOURCE = "deflate_tpu_torch/csrc/fill_block.cuh"   # K4's and K6's fill
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 
 
@@ -161,12 +166,17 @@ def main() -> int:
                          text=True, timeout=60)
     require(smi.returncode == 0 and smi.stdout.strip() != "",
             f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+
+    def say(msg: str) -> None:
+        """A line of measured numbers, with the card they were taken on."""
+        print(f"{msg} [{card}]", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
     native.lib()
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s [{card}]")
 
     # kernel -> (module, wrapper, launch counter)
     kernels = {
@@ -237,11 +247,11 @@ def main() -> int:
                                               man.hint_array(), device=dev)
     fallback = int(np.count_nonzero(err | (produced != np.asarray(sizes))))
     require(fallback == 0, f"{fallback} blocks took the host fallback")
-    print(f"A encode: {len(data)} bytes, {len(man.blocks)} blocks -> "
-          f"{len(stream)} bytes (ratio {len(stream) / len(data):.4f}) in "
-          f"{t_enc:.3f} s = {mb / t_enc:.2f} MB/s", flush=True)
-    print(f"A device decode: {len(data)} bytes in {t_dec:.3f} s = "
-          f"{mb / t_dec:.2f} MB/s", flush=True)
+    say(f"A encode: {len(data)} bytes, {len(man.blocks)} blocks -> "
+        f"{len(stream)} bytes (ratio {len(stream) / len(data):.4f}) in "
+        f"{t_enc:.3f} s = {mb / t_enc:.2f} MB/s")
+    say(f"A device decode: {len(data)} bytes in {t_dec:.3f} s = "
+        f"{mb / t_dec:.2f} MB/s")
 
     # ---- phase B: foreign stream, skeleton walk + wave decode (K2/K3/K5)
     plan = WD.skeleton_plan(raw)
@@ -269,13 +279,13 @@ def main() -> int:
     require(out == data and st_host["redirected"] == "device_to_host_default"
             and st_host["device_path"] == "native_host",
             f"redirected decode {st_host}")
-    print(f"B foreign zlib-6 stream: {len(raw)} bytes (ratio "
-          f"{len(raw) / len(data):.4f}), {len(flags)} virtual blocks "
-          f"({flag_counts(flags)}); K2 {lb['K2']}, "
-          f"K3 {lb['K3']}, K5 {lb['K5']} launches", flush=True)
-    print(f"B device decode (force_device): {t_b:.3f} s = {mb / t_b:.2f} "
-          f"MB/s; redirected host decode: {t_host:.3f} s = "
-          f"{mb / t_host:.2f} MB/s", flush=True)
+    say(f"B foreign zlib-6 stream: {len(raw)} bytes (ratio "
+        f"{len(raw) / len(data):.4f}), {len(flags)} virtual blocks "
+        f"({flag_counts(flags)}); K2 {lb['K2']}, "
+        f"K3 {lb['K3']}, K5 {lb['K5']} launches")
+    say(f"B device decode (force_device): {t_b:.3f} s = {mb / t_b:.2f} "
+        f"MB/s; redirected host decode: {t_host:.3f} s = "
+        f"{mb / t_host:.2f} MB/s")
 
     # ---- phase C: hintless manifest, every block through K6 ------------
     def phase_c():
@@ -295,9 +305,8 @@ def main() -> int:
     k6_blocks = sum(int(c[1].shape[0]) for c in calls["K6"])
     require(k6_blocks == len(hman.blocks) == 256,
             f"K6 decoded {k6_blocks} of {len(hman.blocks)} blocks")
-    print(f"C hintless device decode: {len(hman.blocks)} blocks in "
-          f"{lc['K6']} K6 launches, {t_c:.3f} s = {mb / t_c:.2f} MB/s",
-          flush=True)
+    say(f"C hintless device decode: {len(hman.blocks)} blocks in "
+        f"{lc['K6']} K6 launches, {t_c:.3f} s = {mb / t_c:.2f} MB/s")
 
     # ---- phase D: level 3 through the merge and kernel-pack backends ----
     def encode_l3(pack_backend):
@@ -322,12 +331,12 @@ def main() -> int:
     require(km3.blocks == m3.blocks and km3.hints == m3.hints
             and km3.to_bytes() == m3.to_bytes(),
             "level-3 offsets or hints of the two backends differ")
-    print(f"D level-3 encode: {len(data)} bytes -> {len(s3)} bytes (ratio "
-          f"{len(s3) / len(data):.4f}); merge backend {t_d:.3f} s = "
-          f"{mb / t_d:.2f} MB/s (K1 {ld_merge['K1']}); kernel pack "
-          f"{t_dk:.3f} s = {mb / t_dk:.2f} MB/s (K1 {ld['K1']}, K3 "
-          f"{ld['K3']}, K7 {ld['K7']} launches); streams, offsets and "
-          f"hints identical", flush=True)
+    say(f"D level-3 encode: {len(data)} bytes -> {len(s3)} bytes (ratio "
+        f"{len(s3) / len(data):.4f}); merge backend {t_d:.3f} s = "
+        f"{mb / t_d:.2f} MB/s (K1 {ld_merge['K1']}); kernel pack "
+        f"{t_dk:.3f} s = {mb / t_dk:.2f} MB/s (K1 {ld['K1']}, K3 "
+        f"{ld['K3']}, K7 {ld['K7']} launches); streams, offsets and "
+        f"hints identical")
 
     # ---- phase E: D's stream through the split stage A (K8) ------------
     @contextlib.contextmanager
@@ -358,10 +367,10 @@ def main() -> int:
     fallback = int(np.count_nonzero(
         err | (produced != np.asarray([b[2] for b in m3.blocks]))))
     require(fallback == 0, f"{fallback} L3 blocks took the host fallback")
-    print(f"E split stage-A decode (DT_STAGEAB_PALLAS=0): {len(data)} bytes "
-          f"in {t_e:.3f} s = {mb / t_e:.2f} MB/s; K8 {le['K8']}, K3 "
-          f"{le['K3']}, K4 {le['K4']}, K2 {k2_in_e} launches, 0 blocks on "
-          f"the host", flush=True)
+    say(f"E split stage-A decode (DT_STAGEAB_PALLAS=0): {len(data)} bytes "
+        f"in {t_e:.3f} s = {mb / t_e:.2f} MB/s; K8 {le['K8']}, K3 "
+        f"{le['K3']}, K4 {le['K4']}, K2 {k2_in_e} launches, 0 blocks on "
+        f"the host")
 
     # ---- each kernel against its plain version, phase operands ---------
     def timed(fn, reps: int = KERNEL_REPS) -> float:
@@ -431,7 +440,8 @@ def main() -> int:
             "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "library_ms": (sum(library(c) for c in kcalls)
-                           if library else None)})
+                           if library else None),
+            "card": card})
 
     check("K1 tree (litlen, dist, CL tree batches of phase A)", "K1",
           "deflate_tpu_torch/csrc/tree.cu",
@@ -453,18 +463,45 @@ def main() -> int:
     log(f"K3: wrapper {results[-1]['ms']:.4f} ms, dt_route alone "
         f"{results[-1]['kernel_only_ms']:.4f} ms, scatter_ "
         f"{results[-1]['library_ms']:.4f} ms, bound "
-        f"{results[-1]['bound_ms']:.4f} ms")
+        f"{results[-1]['bound_ms']:.4f} ms [{card}]")
 
     def prefix(c, n=PLAIN_PREFIX):
         return tuple(x[:n] if isinstance(x, torch.Tensor) else x for x in c)
 
-    check(f"K4 fill_matches ({len(calls['K4'])} buckets of phase A; "
-          f"plain_ms on the first {PLAIN_PREFIX} blocks of each)", "K4",
+    def records_in_order(c) -> bool:
+        """Every row's live records come in order of opos and none
+        overlaps the next: the contract under which K4 equals the ordered
+        copy (csrc/fill_block.cuh)."""
+        _, recs, nm = c
+        r0 = recs.reshape(recs.shape[0], -1, 2)[..., 0].to(torch.int64)
+        p = r0 & 0x7FFF
+        fld = (r0 >> 16) & 0x7FFF
+        end = p + torch.where((r0 >> 15) & 1 > 0, 3 + (fld & 1), fld + 3)
+        nxt = torch.arange(1, r0.shape[1], device=dev)[None, :]
+        live = nxt < nm.to(torch.int64)[:, None]
+        return bool(((end[:, :-1] <= p[:, 1:]) | ~live).all())
+
+    k4 = calls["K4"]
+    for c in k4:
+        require(records_in_order(c), "K4's records overlap or are unordered")
+    # every row of every bucket against the torch form of the design
+    k4_full = max(max_abs_err(torch, wave_fill.fill_matches_kernel(*c),
+                              wave_fill.fill_matches_jump(*c)) for c in k4)
+    check(f"K4 fill_matches ({len(k4)} buckets of phase A, "
+          f"{[int(c[2].clamp(min=0).sum()) for c in k4]} records; compared "
+          f"with and plain_ms on the first {PLAIN_PREFIX} blocks of each, "
+          f"all rows with fill_matches_jump)", "K4",
           "deflate_tpu_torch/csrc/wave_fill.cu",
           "deflate_tpu/ops/wave_fill.py:336",
           wave_fill.fill_matches_kernel, wave_fill.fill_matches_plain,
-          calls["K4"], [prefix(c) for c in calls["K4"]],
-          bound_bytes=sum(fill_bytes(c) for c in calls["K4"]))
+          k4, [prefix(c) for c in k4],
+          cmp=lambda got, want, c: max(max_abs_err(torch, got, want),
+                                       k4_full),
+          bound_bytes=sum(fill_bytes(c) for c in k4))
+    results[-1]["fill_source"] = FILL_SOURCE
+    results[-1]["per_launch_ms"] = [timed(lambda c=c: wave_fill
+                                          .fill_matches_kernel(*c))
+                                    for c in k4]
     k5 = calls["K5"]
     require(len(k5) == 1, f"K5 ran {len(k5)} times in phase B")
     lit5, _, nm5, sizes5 = k5[0]
@@ -553,6 +590,17 @@ def main() -> int:
           block_inflate.inflate_blocks_plain, k6,
           k6_pick(k6), cmp=k6_cmp,
           bound_bytes=sum(k6_bytes(c) for c in k6))
+    require(len(k6) == 1, f"K6 ran {len(k6)} times in phase C")
+    words6, start6, bit06, avail6, statics6 = k6[0]
+
+    def k6_quarter_ms(q: int) -> float:
+        ix = torch.arange(64 * q, 64 * (q + 1), device=dev)
+        return timed(lambda: block_inflate.inflate_blocks_kernel(
+            words6, start6[ix], bit06[ix], avail6[ix], statics6))
+
+    results[-1]["fill_source"] = FILL_SOURCE
+    results[-1]["quarter_ms"] = {name: k6_quarter_ms(q)
+                                 for q, name in enumerate(QUARTERS)}
 
     def k7_library_ms(c) -> float:
         """One torch scatter_add_ of the packets' precomputed words."""
@@ -585,7 +633,7 @@ def main() -> int:
     for r in results:
         log(f"{r['name']}: max_abs_err {r['max_abs_err']}, kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms, launches {r['launches']}")
+            f"{r['bound_ms']:.4f} ms, launches {r['launches']} [{card}]")
     require(not bad, f"kernels disagree with their plain versions: {bad}")
 
     print(json.dumps({"kernels": results}), flush=True)

@@ -3,16 +3,18 @@ ctypes).
 
 At first use every ``csrc/*.cu`` is compiled by its own ``nvcc`` process,
 all started together, for ``sm_90a`` into ``deflate_tpu_torch/_build/``
-(listed in .gitignore), named by a hash of the source so an edited kernel
-rebuilds.  Each entry point has a plain C signature: tensors travel as
-``data_ptr()`` pointers, the CUDA stream as a pointer, and the function
-returns ``cudaGetLastError()`` after its launch, which :func:`check`
-turns into an exception.  There is no fallback: without ``nvcc`` or a
+(listed in .gitignore), named by a hash of the source and the shared
+``csrc/*.cuh`` headers, so an edited kernel rebuilds.  Each entry point
+has a plain C signature: tensors travel as ``data_ptr()`` pointers, the
+CUDA stream as a pointer, and the function returns
+``cudaGetLastError()`` after its launch, which :func:`check` turns into
+an exception.  There is no fallback: without ``nvcc`` or a
 card, :func:`lib` raises.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -43,7 +45,7 @@ SIGNATURES = {
     "wave_fill": {"dt_fill_matches": [P, P, P, P, I, P]},
     "wave_fill_hist": {"dt_fill_matches_hist": [P, P, P, P, P, P, P, P,
                                                 I, P]},
-    "block_inflate": {"dt_inflate_blocks": [P, P, P, P, P, P, P,
+    "block_inflate": {"dt_inflate_blocks": [P, P, P, P, P, P, P, P,
                                             I, I, P]},
 }
 
@@ -62,9 +64,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[str, str]:
+    """The source and its library path, named by a hash of the source,
+    the shared headers it may include and the flags."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 

@@ -21,7 +21,10 @@ K-chain interleaving.
 ``inflate_blocks_plain`` is a straightforward per-block loop over the
 same tables, with the kernel's error set; CUDA tensors run K6.  The
 contract is produced, err and end bit per block plus out[:produced];
-where err is set only err is meaningful.
+where err is set only err is meaningful.  ``inflate_blocks_records`` is
+the kernel's design in plain form: the same loop emits literals and
+match records (``decode_tokens``), and K4's pointer jumping
+(``wave_fill.fill_matches_jump``) resolves the copies.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ import numpy as np
 import torch
 
 from deflate_tpu_torch import _build
+from deflate_tpu_torch.ops import wave_fill as WF
+from deflate_tpu_torch.ops.wave import NM
 from deflate_tpu_torch.utils import tables as T
 
 # ---- static geometry (pallas_inflate.py:46-75) ---------------------------
@@ -234,9 +239,22 @@ def _probe(tab, base, pk, root, subcap):
     return e, e & 31
 
 
-def _inflate_one(win: bytes, bit0: int, avail: int, statics: np.ndarray):
+def _copy_match(out: bytearray, opos: int, length: int, dist: int):
+    """The byte-sequential LZ77 copy."""
+    src = opos - dist
+    if dist >= length:
+        out[opos:opos + length] = out[src:src + length]
+    else:
+        for j in range(length):
+            out[opos + j] = out[src + j]
+
+
+def _inflate_one(win: bytes, bit0: int, avail: int, statics: np.ndarray,
+                 on_match=_copy_match):
     """One block from its window bytes; returns (out bytearray, produced,
-    err, end bit relative to the window)."""
+    err, end bit relative to the window).  Each valid match calls
+    on_match(out, opos, length, dist), which copies its bytes (the
+    default) or, in K6's decomposition, records it."""
     def peek(bp, n=64):
         v = int.from_bytes(win[bp >> 3:(bp >> 3) + 9], "little") >> (bp & 7)
         return v & ((1 << n) - 1)
@@ -356,12 +374,7 @@ def _inflate_one(win: bytes, bit0: int, avail: int, statics: np.ndarray):
         steps += -(-max(length - 8, 0) // 8)
         if steps > MAX_ACTIONS:
             return out, opos, 1, bp
-        src = opos - dist
-        if dist >= length:
-            out[opos:opos + length] = out[src:src + length]
-        else:
-            for j in range(length):
-                out[opos + j] = out[src + j]
+        on_match(out, opos, length, dist)
         opos += length
         bp = bp3
 
@@ -386,8 +399,53 @@ def inflate_blocks_plain(words, start_w, bit0, avail, statics):
             torch.from_numpy(status).to(dev))
 
 
+def decode_tokens(words, start_w, bit0, avail, statics):
+    """The decode half of K6's design, on the host: each block's literal
+    row (literal and stored bytes placed, zero elsewhere) and its match
+    records, from the loop and error set of inflate_blocks_plain.
+    Returns numpy (lit uint8 [B, OUT_BYTES], rec0 int32 [B, NM] = opos |
+    len3<<16, rec1 int32 [B, NM] = dist, nmatch [B], status int32 [B, 3])."""
+    wb = words.cpu().numpy().tobytes()
+    st = statics.cpu().numpy()
+    B = start_w.shape[0]
+    lit = np.zeros((B, OUT_BYTES), np.uint8)
+    rec0 = np.zeros((B, NM), np.int32)
+    rec1 = np.zeros((B, NM), np.int32)
+    nmatch = np.zeros(B, np.int32)
+    status = np.zeros((B, 3), np.int32)
+    for b, (sw, b0, av) in enumerate(zip(start_w.tolist(), bit0.tolist(),
+                                         avail.tolist())):
+        recs = []
+        o, produced, err, end = _inflate_one(
+            wb[4 * sw:4 * (sw + IN_W)], b0, av, st,
+            lambda out, opos, length, dist: recs.append(
+                (opos | (length - 3) << 16, dist)))
+        lit[b] = np.frombuffer(bytes(o), np.uint8)
+        if recs:
+            rec0[b, :len(recs)], rec1[b, :len(recs)] = zip(*recs)
+        nmatch[b] = len(recs)
+        status[b] = (produced, err, end)
+    return lit, rec0, rec1, nmatch, status
+
+
+def inflate_blocks_records(words, start_w, bit0, avail, statics):
+    """K6's design in plain form: decode_tokens, then the records packed
+    (wave_fill.pack_fill_recs) and resolved by wave_fill.fill_matches_jump,
+    K4's pointer jumping.  A block's matches never overlap and never reach
+    before the block, so this equals inflate_blocks_plain."""
+    lit, rec0, rec1, nmatch, status = decode_tokens(words, start_w, bit0,
+                                                    avail, statics)
+    recs = WF.pack_fill_recs(torch.from_numpy(rec0), torch.from_numpy(rec1))
+    out = WF.fill_matches_jump(torch.from_numpy(lit.view(np.int32)), recs,
+                               torch.from_numpy(nmatch))
+    dev = words.device
+    return out.to(dev), torch.from_numpy(status).to(dev)
+
+
 def inflate_blocks_kernel(words, start_w, bit0, avail, statics):
-    """K6 on the card: same contract as inflate_blocks_plain."""
+    """K6 on the card: same contract as inflate_blocks_plain; the design
+    of inflate_blocks_records (decode to literals and match records, then
+    K4's pointer-jumping fill), with a scratch of NM records a block."""
     global launches
     words, start_w, bit0, avail, statics = (
         x.to(torch.int32).contiguous()
@@ -401,10 +459,11 @@ def inflate_blocks_kernel(words, start_w, bit0, avail, statics):
     out = torch.empty((B, OUT_W), dtype=torch.int32, device=dev)
     status = torch.empty((B, 3), dtype=torch.int32, device=dev)
     if B:
+        recs = torch.empty((B, 2 * NM), dtype=torch.int32, device=dev)
         err = _build.lib("block_inflate").dt_inflate_blocks(
             words.data_ptr(), start_w.data_ptr(), bit0.data_ptr(),
             avail.data_ptr(), statics.data_ptr(), out.data_ptr(),
-            status.data_ptr(), words.shape[0], B,
+            status.data_ptr(), recs.data_ptr(), words.shape[0], B,
             _build.stream_ptr(dev))
         _build.check(err, "dt_inflate_blocks")
         launches += 1

@@ -15,7 +15,11 @@ so a record copies len bytes to opos from src = r1 with dist =
 opos - r1.  A byte-sequential copy equals the periodic extension
 out[opos + k] = out[src + k % dist], whose sources all precede opos; the
 plain version and the kernel both compute that, skip records with
-dist <= 0 and drop bytes past the block's 32 KiB.
+dist <= 0 and drop bytes past the block's 32 KiB.  The kernel resolves a
+row's copies at once by pointer jumping, which equals the ordered copy
+when the row's records do not overlap and come in order of opos, as a
+decoder's do; fill_matches_jump is that design in torch, and K6's fill
+phase runs the same device code (csrc/fill_block.cuh).
 
 K5 (fill_matches_hist, replacing `_kernel_seq`, wrapper
 `fill_matches_hist`) fills the virtual blocks of a foreign-stream plan
@@ -82,8 +86,47 @@ def fill_matches_plain(litwords, recs, nmatch):
     return out.view(I32).reshape(B, OW)
 
 
+def fill_matches_jump(litwords, recs, nmatch):
+    """K4's design in torch (csrc/wave_fill.cu, csrc/fill_block.cuh): the
+    same result as fill_matches_plain for rows whose records do not overlap
+    and come in order of opos, as every decoder plan's do.  Each byte of a
+    row points at the byte it copies: itself for a literal byte, else
+    src + k % dist for byte k of a record.  Sources precede their targets,
+    so every chain ends at a literal byte; pointers jump (ptr = ptr[ptr])
+    until nothing changes, and each output byte is the literal byte at
+    its chain's end."""
+    B = litwords.shape[0]
+    dev = litwords.device
+    I64 = torch.int64
+    live = (torch.arange(NM, device=dev)[None, :]
+            < nmatch.to(I64).clamp(0, NM)[:, None])
+    r = recs.to(I64).reshape(B, NM, 2)
+    row = torch.arange(B, device=dev)[:, None].expand(B, NM)[live]
+    r0, src = r[..., 0][live], r[..., 1][live]
+    p = r0 & 0x7FFF
+    fld = (r0 >> 16) & 0x7FFF
+    rem = torch.where((r0 >> 15) & 1 > 0, 3 + (fld & 1), fld + 3)
+    d = p - src
+    n = torch.minimum(rem, ND - p)
+    ok = (d > 0) & (src >= 0)
+    base, p, n, src, d = row[ok] * ND, p[ok], n[ok], src[ok], d[ok]
+    rec = torch.repeat_interleave(torch.arange(len(n), device=dev), n)
+    k = torch.arange(len(rec), device=dev) - (torch.cumsum(n, 0) - n)[rec]
+    ptr = torch.arange(B * ND, device=dev)
+    ptr[base[rec] + p[rec] + k] = base[rec] + src[rec] + k % d[rec]
+    while True:
+        nxt = ptr[ptr]
+        if torch.equal(nxt, ptr):
+            break
+        ptr = nxt
+    lit = litwords.contiguous().view(torch.uint8).reshape(-1)
+    return lit[ptr].view(I32).reshape(B, OW)
+
+
 def fill_matches_kernel(litwords, recs, nmatch):
-    """K4 on the card: same contract as fill_matches_plain."""
+    """K4 on the card: the result of fill_matches_plain for every row
+    whose records do not overlap and come in order of opos (the contract
+    of csrc/fill_block.cuh, which every decoder plan meets)."""
     global launches
     litwords = litwords.to(I32).contiguous()
     recs = recs.to(I32).contiguous()
@@ -94,6 +137,8 @@ def fill_matches_kernel(litwords, recs, nmatch):
             or nmatch.shape != (B,):
         raise ValueError("fill operands must be litwords [B, 8192], "
                          "pack_fill_recs records [B, 2*NM], nmatch [B]")
+    if litwords.data_ptr() % 16 or recs.data_ptr() % 8:
+        litwords, recs = litwords.clone(), recs.clone()   # int4, int2 loads
     out = torch.empty_like(litwords)
     if B:
         err = _build.lib("wave_fill").dt_fill_matches(

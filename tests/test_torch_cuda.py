@@ -25,7 +25,8 @@ from deflate_tpu_torch.ops import wave_stagea as WS
 from deflate_tpu_torch.runtime import manifest as M
 from torch_helpers import (NM, ROUTE_CASES, assert_same,  # noqa: F401
                            corpus, cuda_device, fill_case, hist_case,
-                           monotone_instance, route_case)
+                           long_match_streams, monotone_instance,
+                           route_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -116,6 +117,46 @@ def test_k4_kernel_matches_plain(cuda_device):
     want = WF.fill_matches_plain(*args)
     torch.cuda.synchronize()
     assert_same(got, want, "K4")
+
+
+def test_k4_kernel_matches_jump_on_decoder_rows(cuda_device, monkeypatch):
+    """K4 against the torch form of its design (and the plain version) on
+    fill_case and on every row of a level-2 hinted decode of corpus(4)."""
+    lit, rec0, rec1, nmatch = fill_case(8)
+    recs = WF.pack_fill_recs(torch.from_numpy(rec0), torch.from_numpy(rec1))
+    cases = [[x.to(cuda_device) for x in
+              (torch.from_numpy(lit), recs, torch.from_numpy(nmatch))]]
+    data = corpus(4, seed=21)
+    s, m = M.compress_with_manifest(data, level=2, device=cuda_device)
+    kernel = WF.fill_matches
+
+    def capture(*args):
+        cases.append(args)
+        return kernel(*args)
+
+    monkeypatch.setattr(WF, "fill_matches", capture)
+    out, _, err = WD.inflate_wave_device(
+        s, [b[0] for b in m.blocks], [b[2] for b in m.blocks],
+        m.hint_array(), device=cuda_device)
+    assert len(cases) > 1 and not err.any()
+    for i, args in enumerate(cases):
+        got = WF.fill_matches_kernel(*args)
+        torch.cuda.synchronize()
+        assert_same(got, WF.fill_matches_jump(*args), f"K4 vs jump, case {i}")
+        assert_same(got, WF.fill_matches_plain(*args), f"K4 vs plain, case {i}")
+
+
+def test_k6_kernel_on_long_matches(cuda_device):
+    """258-byte matches at distance 1, and one at distance 32768 - 258."""
+    for name, st in long_match_streams().items():
+        ops = [torch.from_numpy(x).to(cuda_device)
+               for x in (*BI.prepare_blocks(st, [0]), BI.make_statics())]
+        go, gs = BI.inflate_blocks_kernel(*ops)
+        wo, ws = BI.inflate_blocks_plain(*ops)
+        torch.cuda.synchronize()
+        assert int(ws[0, 1]) == 0 and int(ws[0, 0]) == 32768, name
+        assert_same(gs, ws, f"K6 status, {name}")
+        assert_same(go, wo, f"K6 row, {name}")
 
 
 def test_main_path_on_card_equals_cpu(cuda_device):

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import os
 import sys
+import zlib
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 from bench import make_corpus  # noqa: E402
+from deflate_tpu_torch.utils import tables as T  # noqa: E402
 
 # test files run in parallel worker processes; keep each to a few threads
 torch.set_num_threads(2)
@@ -194,3 +196,47 @@ def hist_case():
             rec1[b, m] = d
         nmatch[b] = len(recs)
     return lit, rec0, rec1, nmatch, sizes
+
+
+def pack_fields(fields) -> bytes:
+    """(value, nbits) fields, LSB-first, as bytes (4 zero bytes after)."""
+    acc = nb = 0
+    for v, n in fields:
+        acc |= int(v) << nb
+        nb += int(n)
+    return acc.to_bytes(-(-nb // 8) + 4, "little")
+
+
+def _fixed_code(sym: int):
+    """The fixed-Huffman litlen code of sym as an LSB-first field."""
+    if sym < 144:
+        code, n = 0x30 + sym, 8
+    elif sym < 256:
+        code, n = 0x190 + sym - 144, 9
+    elif sym < 280:
+        code, n = sym - 256, 7
+    else:
+        code, n = 0xC0 + sym - 280, 8
+    return int(format(code, f"0{n}b")[::-1], 2), n
+
+
+def long_match_streams() -> dict:
+    """Single self-contained blocks of long matches: "dist_1", zlib's
+    block of 258-byte matches at distance 1 (127 of them), and
+    "dist_32510", a hand-built fixed-Huffman block of 32510 random
+    literals and one 258-byte match at distance 32768 - 258 (past
+    zlib's longest distance, 32506).  Each decodes to 32768 bytes."""
+    rng = np.random.default_rng(9)
+    c = zlib.compressobj(9, zlib.DEFLATED, -15, 9)
+    near = c.compress(b"z" * 32768) + c.flush()
+    dist, length = 32768 - 258, 258
+    head = rng.integers(0, 256, dist, dtype=np.uint8)
+    li = max(i for i in range(29) if T.LENGTH_BASE[i] <= length)
+    di = max(i for i in range(30) if T.DIST_BASE[i] <= dist)
+    fields = [(1, 1), (1, 2)] + [_fixed_code(int(v)) for v in head]
+    fields += [_fixed_code(257 + li),
+               (length - int(T.LENGTH_BASE[li]), int(T.LENGTH_EXTRA[li])),
+               (int(format(di, "05b")[::-1], 2), 5),
+               (dist - int(T.DIST_BASE[di]), int(T.DIST_EXTRA[di])),
+               _fixed_code(256)]
+    return {"dist_1": near, "dist_32510": pack_fields(fields)}
