@@ -29,10 +29,13 @@ launched.  Then each kernel is held against its plain PyTorch version on
 the card, on operands its phase gave it, and both are timed with CUDA
 events; the line of kernel results adds each kernel's bound (bytes moved
 over 3.35 TB/s) and, for K3 and K7, one PyTorch scatter of the same
-work; K3's also gets the time of its launch alone (kernel_only_ms); K4
-and K5 are held on every row against the torch forms of their designs
-(K4's rows must hold records in order without overlap); K6's adds its
-time on each corpus quarter's 64 blocks alone (quarter_ms).
+work; K2's and K3's also get the time of their C entry point alone
+(kernel_only_ms), K2's its ns per chain step and K8's its ns per
+position; K2 (on every call of phases A and B), K4, K5 (on every row)
+and K8 (on every position) are also held against the torch forms of
+their designs (K4's rows must hold records in order without overlap);
+K6's adds its time on each corpus quarter's 64 blocks alone
+(quarter_ms).
 
 Prints the card (nvidia-smi name and power limit), MB/s of every phase,
 one JSON line of kernel results, and as its last line
@@ -60,6 +63,7 @@ K6_PICK = (0, 1, 64, 65, 128, 129, 192, 193)   # two blocks of each corpus
                                                # quarter: K6's plain blocks
 QUARTERS = ("text", "repeats", "words", "random")   # make_corpus's order
 FILL_SOURCE = "deflate_tpu_torch/csrc/fill_block.cuh"   # K4's and K6's fill
+CORE_SOURCE = "deflate_tpu_torch/csrc/stagea_core.cuh"  # K2's and K8's decode
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 
 
@@ -447,11 +451,47 @@ def main() -> int:
           "deflate_tpu_torch/csrc/tree.cu",
           "deflate_tpu/ops/pallas_tree.py:40", tree.depths_kernel,
           tree.depths_plain, calls["K1"])
-    check(f"K2 decode_mark ({len(calls['K2'])} buckets of phase A)", "K2",
+    def k2_kernel_only_ms(c) -> float:
+        """dt_decode_mark alone (its table build and decode, no
+        allocation, no checks) into preallocated outputs."""
+        nw, hs, mds, W64, stop, maxl, maxd = c
+        nw, hs, mds = (x.to(torch.int32).contiguous() for x in (nw, hs, mds))
+        if stop is not None:
+            stop = stop.to(torch.int32).contiguous()
+        out = [torch.empty_like(x) for x in wave_stagea.decode_mark_kernel(
+            *c)]
+        tables = torch.empty((nw.shape[0], wave_stagea.TABLE_WORDS),
+                             dtype=torch.int32, device=dev)
+        return timed(lambda: wave_stagea.mark_launch(
+            nw, hs, mds, stop, *out, tables, W64, maxl, maxd))
+
+    # every K2 call of phases A and B (B's with their stop bits) against
+    # the torch form of its design, decode_mark_lut
+    k2_lut = max(max_abs_err(torch, wave_stagea.decode_mark_kernel(*c),
+                             wave_stagea.decode_mark_lut(*c))
+                 for c in calls["K2"] + cb["K2"])
+    k2_steps = sum(int(wave_stagea.decode_mark_kernel(*c)[2][:, 5].sum())
+                   for c in calls["K2"])
+    check(f"K2 decode_mark ({len(calls['K2'])} buckets of phase A, "
+          f"{k2_steps} chain steps; all {len(calls['K2']) + len(cb['K2'])} "
+          f"calls of phases A and B also compared with decode_mark_lut; "
+          f"kernel_only_ms: dt_decode_mark alone into preallocated "
+          f"outputs)", "K2",
           "deflate_tpu_torch/csrc/wave_stagea.cu",
           "deflate_tpu/ops/wave_stagea.py:73",
           wave_stagea.decode_mark_kernel, wave_stagea.decode_mark_plain,
-          calls["K2"])
+          calls["K2"],
+          cmp=lambda got, want, c: max(max_abs_err(torch, got, want),
+                                       k2_lut))
+    results[-1]["core_source"] = CORE_SOURCE
+    results[-1]["kernel_only_ms"] = sum(k2_kernel_only_ms(c)
+                                        for c in calls["K2"])
+    results[-1]["chain_steps"] = k2_steps
+    results[-1]["ns_per_step"] = results[-1]["kernel_only_ms"] * 1e6 \
+        / k2_steps
+    log(f"K2: wrapper {results[-1]['ms']:.4f} ms, dt_decode_mark alone "
+        f"{results[-1]['kernel_only_ms']:.4f} ms, "
+        f"{results[-1]['ns_per_step']:.4f} ns a chain step [{card}]")
     check(f"K3 route ({len(calls['K3'])} calls of phase A; library_ms: "
           "torch scatter_ to the same slots; kernel_only_ms: dt_route "
           "alone into preallocated outputs)", "K3",
@@ -622,12 +662,31 @@ def main() -> int:
           # the words out
           bound_bytes=12 * npackets + nbytes(torch, k7[0][0])
           + k7[0][1].shape[0] * pack.OUTW * 4)
-    check(f"K8 decode_positions ({len(calls['K8'])} buckets of phase E, "
-          f"W64 {[c[2] for c in calls['K8']]})", "K8",
+    k8 = calls["K8"]
+    k8_positions = sum(int(c[0].shape[0]) * 64 * c[2] for c in k8)
+    # every position of every bucket against the plain version (check's
+    # comparison) and the torch form of the design, decode_positions_lut
+    k8_lut = max(max_abs_err(torch, wave_stagea.decode_positions_kernel(*c),
+                             wave_stagea.decode_positions_lut(*c))
+                 for c in k8)
+    check(f"K8 decode_positions ({len(k8)} buckets of phase E, W64 "
+          f"{[c[2] for c in k8]}, {k8_positions} positions, each compared "
+          f"with the plain version and decode_positions_lut)", "K8",
           "deflate_tpu_torch/csrc/wave_stagea.cu",
           "deflate_tpu/ops/wave_stagea.py:53",
           wave_stagea.decode_positions_kernel,
-          wave_stagea.decode_positions_plain, calls["K8"])
+          wave_stagea.decode_positions_plain, k8,
+          cmp=lambda got, want, c: max(max_abs_err(torch, got, want),
+                                       k8_lut))
+    results[-1]["core_source"] = CORE_SOURCE
+    results[-1]["positions"] = k8_positions
+    results[-1]["ns_per_position"] = results[-1]["ms"] * 1e6 / k8_positions
+    results[-1]["per_launch_ms"] = [timed(lambda c=c: wave_stagea
+                                          .decode_positions_kernel(*c))
+                                    for c in k8]
+    log(f"K8: {results[-1]['ms']:.4f} ms over {k8_positions} positions, "
+        f"{results[-1]['ns_per_position']:.5f} ns a position, per launch "
+        f"{results[-1]['per_launch_ms']} [{card}]")
 
     bad = [r["name"] for r in results if r["max_abs_err"] != 0]
     for r in results:

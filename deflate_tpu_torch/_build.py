@@ -36,9 +36,9 @@ LL = ctypes.c_longlong
 # entry point -> argument types (pointers, integers, then the stream)
 SIGNATURES = {
     "tree": {"dt_tree_depths": [P, P, P, I, I, P]},
-    "wave_stagea": {"dt_decode_mark": [P, P, P, P, P, P,
-                                       I, I, I, I, P],
-                    "dt_decode_positions": [P, P, P, P, I, I, P]},
+    "wave_stagea": {"dt_decode_mark": [P, P, P, P, P, P, P, P,
+                                       I, I, I, I, I, P],
+                    "dt_decode_positions": [P, P, P, P, P, I, I, I, P]},
     "pack": {"dt_pack_blocks": [P, P, P, P, P, I, I, I, P]},
     "wave_route": {"dt_route": [P, P, P, LL, LL, LL, P, P, P, P, P, P,
                                  I, I, I, I, I, P]},

@@ -363,16 +363,9 @@ def _canon_decode(PK, g, lim_key, first_key, extra_keys, maxl=15):
     return found, srl(rsel, 10), rsel & 1023, sels
 
 
-def decode_core(PK, PKH, g, maxl: int = 15, maxd: int = 15):
-    """Stage-A math on peek windows (elementwise, any shape).
-
-    maxl/maxd bound the litlen/dist compare rounds (rounds past a
-    table's longest code never hit).  Returns packed int32 arrays:
-      A0 = advance(6) | emit(9)<<6 | class(2)<<15 | X(9)<<17 | len(4)<<26
-           X = rank for literals, length-3 for matches; class 0=lit
-           1=match 2=EOB 3=invalid;
-      P1 = dist(15).
-    """
+def lit_fields(PK, g, maxl: int = 15):
+    """decode_core's litlen half: (found, len, rank, is_lit, is_eob,
+    is_m, extra bits, base length) from the low maxl bits of PK."""
     found, len_, r_rel, (metasel, masksel) = _canon_decode(
         PK, g, "l_lim", "l_first", ["l_meta", "l_mask"], maxl)
 
@@ -390,18 +383,40 @@ def decode_core(PK, PKH, g, maxl: int = 15, maxd: int = 15):
                         torch.where(li == 28, 258,
                                     3 + ((4 + (li & 3))
                                          << torch.clamp(li4, 0, 5))))
-    lextra = srl(PK, len_) & ((1 << ebits) - 1)
-    length = torch.where(is_m, lbase + lextra, 1)
+    return found, len_, r_rel, is_lit, is_eob, is_m, ebits, lbase
 
-    adv1 = len_ + torch.where(is_m, ebits, 0)
-    a1c = torch.clamp(adv1, 1, 24)
-    pk2 = srl(PK, a1c) | (PKH << (32 - a1c))
+
+def dist_fields(pk2, g, maxd: int = 15):
+    """decode_core's distance half: (found, len, extra bits, base
+    distance) from the low maxd bits of pk2."""
     dfound, dlen, dr_rel, (dmasksel,) = _canon_decode(
         pk2, g, "d_lim", "d_first", ["d_mask"], maxd)
     dsym = select_bit32(dmasksel, dr_rel)                  # 0..29
     dh = torch.clamp(srl(dsym, 1) - 1, 0, 13)
     debits = torch.where(dsym < 4, 0, dh)
     dbase = torch.where(dsym < 4, 1 + dsym, 1 + ((2 + (dsym & 1)) << dh))
+    return dfound, dlen, debits, dbase
+
+
+def decode_core(PK, PKH, g, maxl: int = 15, maxd: int = 15):
+    """Stage-A math on peek windows (elementwise, any shape).
+
+    maxl/maxd bound the litlen/dist compare rounds (rounds past a
+    table's longest code never hit).  Returns packed int32 arrays:
+      A0 = advance(6) | emit(9)<<6 | class(2)<<15 | X(9)<<17 | len(4)<<26
+           X = rank for literals, length-3 for matches; class 0=lit
+           1=match 2=EOB 3=invalid;
+      P1 = dist(15).
+    """
+    found, len_, r_rel, is_lit, is_eob, is_m, ebits, lbase = lit_fields(
+        PK, g, maxl)
+    lextra = srl(PK, len_) & ((1 << ebits) - 1)
+    length = torch.where(is_m, lbase + lextra, 1)
+
+    adv1 = len_ + torch.where(is_m, ebits, 0)
+    a1c = torch.clamp(adv1, 1, 24)
+    pk2 = srl(PK, a1c) | (PKH << (32 - a1c))
+    dfound, dlen, debits, dbase = dist_fields(pk2, g, maxd)
     dextra = srl(pk2, torch.clamp(dlen, 1, 28)) & ((1 << debits) - 1)
     dist = torch.where(is_m, dbase + dextra, 0)
 

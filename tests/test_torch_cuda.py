@@ -25,8 +25,8 @@ from deflate_tpu_torch.ops import wave_stagea as WS
 from deflate_tpu_torch.runtime import manifest as M
 from torch_helpers import (NM, ROUTE_CASES, assert_same,  # noqa: F401
                            corpus, cuda_device, fill_case, hist_case,
-                           long_match_streams, monotone_instance,
-                           route_case)
+                           long_code_case, long_match_streams,
+                           monotone_instance, random_code_case, route_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -298,6 +298,73 @@ def test_k8_kernel_matches_plain(cuda_device):
         torch.cuda.synchronize()
         assert_same(got[0], want[0], f"A0 W64={W64}")
         assert_same(got[1], want[1], f"P1 W64={W64}")
+
+
+def _stagea_cases(dev):
+    """Stage-A operands on the card (windows, hints, md rows [B, 7, 16]):
+    the level-3 stream of corpus(4) at W64 = 512 with its manifest's
+    hints, random words under random codes, and codes up to 15 bits long
+    under words that reach them (most peeks miss the tables)."""
+    data = corpus(4, seed=21)
+    stream, man = M.compress_with_manifest(data, level=3, device="cpu")
+    offs = [b[0] for b in man.blocks]
+    md = W.parse_headers_host(stream, offs)
+    huff = [i for i in range(len(offs)) if md["btype"][i] != 0]
+    W64 = 512
+    nw = W.prepare_windows(stream, md["data_start"][huff], W64)
+    hints = man.hint_array()[huff][:, :W64]
+    hs = np.full((len(huff), W64), W.HINT_NONE, np.int32)
+    hs[:, :hints.shape[1]] = hints
+    rng = np.random.default_rng(12)
+    out = [(nw, hs, {k: np.asarray(md[k])[huff] for k in W.MD_KEYS}),
+           random_code_case(rng, 4, W64), long_code_case(rng, 4, W64)]
+    return [(torch.from_numpy(nw).to(dev), torch.from_numpy(hs).to(dev),
+             W.stack_md({k: torch.from_numpy(np.ascontiguousarray(
+                 v, np.int32)) for k, v in m.items()}).to(dev), W64)
+            for nw, hs, m in out]
+
+
+def test_k8_kernel_matches_lut(cuda_device):
+    """K8 against the torch form of its design and its plain version,
+    the exact decode behind the tables' SLOW entries included."""
+    for i, (nw, _, mds, W64) in enumerate(_stagea_cases(cuda_device)):
+        got = WS.decode_positions_kernel(nw, mds, W64)
+        torch.cuda.synchronize()
+        for want, name in ((WS.decode_positions_lut(nw, mds, W64), "lut"),
+                           (WS.decode_positions_plain(nw, mds, W64),
+                            "plain")):
+            assert_same(got[0], want[0], f"A0 vs {name}, case {i}")
+            assert_same(got[1], want[1], f"P1 vs {name}, case {i}")
+
+
+def test_k2_kernel_matches_lut(cuda_device):
+    """K2 against the torch form of its design and its plain version,
+    with the stop bit as its own pointer (on each block's chain) and as
+    none, at 15 rounds and at maxl/maxd 12/13; and the tables its build
+    pass writes against build_tables."""
+    for i, (nw, hs, mds, W64) in enumerate(_stagea_cases(cuda_device)):
+        sums = WS.decode_mark_plain(nw, hs, mds, W64)[2]
+        w = torch.argmax((sums[:, 5] >= 2).to(torch.int32), 1)
+        b = torch.arange(nw.shape[0], device=cuda_device)
+        stop = (64 * w + hs[b, w]).to(torch.int32)
+        for st, ml, mdx in ((None, 15, 15), (stop, 15, 15), (None, 12, 13),
+                            (stop, 12, 13)):
+            got = WS.decode_mark_kernel(nw, hs, mds, W64, st, ml, mdx)
+            torch.cuda.synchronize()
+            for want, name in (
+                    (WS.decode_mark_lut(nw, hs, mds, W64, st, ml, mdx),
+                     "lut"),
+                    (WS.decode_mark_plain(nw, hs, mds, W64, st, ml, mdx),
+                     "plain")):
+                for g, x, k in zip(got, want, ("A0c", "P1c", "sums")):
+                    assert_same(g, x, f"{k} vs {name}, case {i}, "
+                                      f"stop {st is not None}, {ml}/{mdx}")
+            tables = torch.empty((nw.shape[0], WS.TABLE_WORDS),
+                                 dtype=torch.int32, device=cuda_device)
+            WS.mark_launch(nw, hs, mds, st, *got, tables, W64, ml, mdx)
+            torch.cuda.synchronize()
+            assert_same(tables, torch.cat(WS.build_tables(
+                mds, WS.KL, WS.KD, ml, mdx), 1), f"tables, case {i}")
 
 
 def test_level3_kernel_pack_and_split_decode_on_card(cuda_device,

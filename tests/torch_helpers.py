@@ -20,6 +20,7 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 from bench import make_corpus  # noqa: E402
+from deflate_tpu_torch.ops import wave as W  # noqa: E402
 from deflate_tpu_torch.utils import tables as T  # noqa: E402
 
 # test files run in parallel worker processes; keep each to a few threads
@@ -240,3 +241,69 @@ def long_match_streams() -> dict:
                (dist - int(T.DIST_BASE[di]), int(T.DIST_EXTRA[di])),
                _fixed_code(256)]
     return {"dist_1": near, "dist_32510": pack_fields(fields)}
+
+
+def random_code(rng, nsym: int, ncodes: int, must=()):
+    """Lengths of a random complete prefix code of ncodes symbols (one
+    of them each of `must`), depths up to 15."""
+    depths = [0]
+    while len(depths) < ncodes:
+        i = int(rng.choice([k for k, d in enumerate(depths) if d < 15]))
+        d = depths.pop(i) + 1
+        depths += [d, d]
+    rest = [s for s in range(nsym) if s not in must]
+    syms = list(must) + list(rng.choice(rest, ncodes - len(must),
+                                        replace=False))
+    lens = np.zeros(nsym, np.int64)
+    lens[syms] = rng.permutation(depths)
+    return lens
+
+
+def md_rows(codes) -> dict:
+    """Stage-A md rows (wave.MD_KEYS, int32 [B, 16] each) of (litlen,
+    distance) code length lists, one pair a block."""
+    rows = {k: [] for k in W.MD_KEYS}
+    for lit, dist in codes:
+        for pre, m in (("l_", W._canon_meta(lit, True)),
+                       ("d_", W._canon_meta(dist, False))):
+            for k in ("lim", "first", "meta", "mask"):
+                if pre + k in rows:
+                    rows[pre + k].append(W._u32(m[k]))
+    return {k: np.stack(v) for k, v in rows.items()}
+
+
+def random_code_case(rng, B: int, W64: int):
+    """Stage-A operands (windows int32 [B, 2*W64+4], hints int32 [B, W64],
+    md rows): random words and hints under random complete codes; the
+    last block's distance tree is one 1-bit code (half its distance
+    peeks find no code)."""
+    codes = []
+    for b in range(B):
+        lit = random_code(rng, 286, int(rng.integers(20, 200)),
+                          must=(256, 257, 270, 284))
+        dist = np.zeros(30, np.int64)
+        if b == B - 1:
+            dist[int(rng.integers(0, 30))] = 1
+        else:
+            dist = random_code(rng, 30, int(rng.integers(2, 31)))
+        codes.append((lit, dist))
+    words = rng.integers(-2**31, 2**31, (B, 2 * W64 + 4), dtype=np.int64)
+    hints = rng.integers(0, 64, (B, W64)).astype(np.int32)
+    hints[rng.random((B, W64)) < 0.1] = W.HINT_NONE
+    return words.astype(np.int32), hints, md_rows(codes)
+
+
+def long_code_case(rng, B: int, W64: int):
+    """Stage-A operands whose litlen and distance codes have depths 1 to
+    15 and 15 (the longest 15 bits), under words of 90% one bits, which
+    reach the long codes often: most peeks miss a table of 10-12 bits."""
+    chain = list(range(1, 16)) + [15]
+    lit = np.zeros(286, np.int64)
+    lit[[65, 256, 257, 97, 262, 100, 270, 110, 280, 120, 284, 66, 258,
+         285, 67, 68]] = chain
+    dist = np.zeros(30, np.int64)
+    dist[[0, 29, 4, 20, 8, 13, 1, 27, 5, 16, 2, 24, 10, 3, 18, 6]] = chain
+    bits = rng.random((B, (2 * W64 + 4) * 32)) < 0.9
+    words = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
+    hints = rng.integers(0, 64, (B, W64)).astype(np.int32)
+    return words, hints, md_rows([(lit, dist)] * B)
