@@ -33,7 +33,9 @@ work; K2's and K3's also get the time of their C entry point alone
 (kernel_only_ms), K2's its ns per chain step and K8's its ns per
 position; K2 (on every call of phases A and B), K4, K5 (on every row)
 and K8 (on every position) are also held against the torch forms of
-their designs (K4's rows must hold records in order without overlap);
+their designs (K4's rows must hold records in order without overlap),
+and K1 on every call of phases A and D against its plain version and
+the torch form of its design; K1's result adds its C entry alone;
 K6's adds its time on each corpus quarter's 64 blocks alone
 (quarter_ms).
 
@@ -324,10 +326,11 @@ def main() -> int:
 
     ws3, wm3 = M.compress_with_manifest(data, level=3, device=dev)
     require(encode_l3("kernel")[0] == ws3, "warm-up level-3 kernel pack")
-    (s3, m3), t_d, ld_merge, _ = run_phase(
+    (s3, m3), t_d, ld_merge, cd_merge = run_phase(
         ["K1"], lambda: M.compress_with_manifest(data, level=3, device=dev))
     (ks3, km3), t_dk, ld, cd = run_phase(["K1", "K3", "K7"],
                                          lambda: encode_l3("kernel"))
+    k1_d = cd_merge["K1"] + cd["K1"]      # K1's calls of both backends
     launches["K7"] = ld["K7"]
     calls["K7"] = cd["K7"]
     require(zlib.decompress(s3, -15) == data, "zlib rejects the L3 stream")
@@ -447,10 +450,41 @@ def main() -> int:
                            if library else None),
             "card": card})
 
-    check("K1 tree (litlen, dist, CL tree batches of phase A)", "K1",
+    # every K1 call of phases A and D against the plain version and the
+    # torch form of the design, depths_jump
+    k1_all = calls["K1"] + k1_d
+    k1_more = max(max(max_abs_err(torch, tree.depths_kernel(*c),
+                                  tree.depths_plain(*c)) for c in k1_d),
+                  max(max_abs_err(torch, tree.depths_kernel(*c),
+                                  tree.depths_jump(*c)) for c in k1_all))
+    k1_steps = sum(int((c[1].to(torch.int64) - 1).clamp(min=0).sum())
+                   for c in calls["K1"])
+
+    def k1_kernel_only_ms(c) -> float:
+        """dt_tree_depths alone (no allocation, no checks) into a
+        preallocated output."""
+        out = torch.empty((c[0].shape[0], tree.NW), dtype=torch.int32,
+                          device=dev)
+        return timed(lambda: tree.depths_launch(*c, out))
+
+    check(f"K1 tree (litlen, dist, CL tree batches of phase A, "
+          f"{k1_steps} merge steps; all {len(k1_all)} calls of phases A "
+          f"and D also compared with depths_plain and depths_jump; "
+          f"kernel_only_ms: dt_tree_depths alone into a preallocated "
+          f"output)", "K1",
           "deflate_tpu_torch/csrc/tree.cu",
           "deflate_tpu/ops/pallas_tree.py:40", tree.depths_kernel,
-          tree.depths_plain, calls["K1"])
+          tree.depths_plain, calls["K1"],
+          cmp=lambda got, want, c: max(max_abs_err(torch, got, want),
+                                       k1_more))
+    results[-1]["kernel_only_ms"] = sum(k1_kernel_only_ms(c)
+                                        for c in calls["K1"])
+    results[-1]["merge_steps"] = k1_steps
+    results[-1]["launches_d"] = [ld_merge["K1"], ld["K1"]]
+    log(f"K1: wrapper {results[-1]['ms']:.4f} ms, dt_tree_depths alone "
+        f"{results[-1]['kernel_only_ms']:.4f} ms over {k1_steps} merge "
+        f"steps; {len(k1_all)} calls of phases A and D compared [{card}]")
+
     def k2_kernel_only_ms(c) -> float:
         """dt_decode_mark alone (its table build and decode, no
         allocation, no checks) into preallocated outputs."""

@@ -32,18 +32,31 @@ pytestmark = pytest.mark.cuda
 
 
 def test_k1_kernel_matches_plain(cuda_device):
+    """K1 against depths_plain and depths_jump on the whole [T, 1024]
+    output: random trees, nz = 0, 1 and 2, Fibonacci chains whose deepest
+    leaves sit at nz - 1, and n = 512 with every symbol used."""
     rng = np.random.default_rng(1)
-    for n in (288, 30, 19):
-        f = rng.integers(0, 300, (768, n)).astype(np.int32)
+    fib = [1, 1]
+    while len(fib) < 36:
+        fib.append(fib[-1] + fib[-2])
+    for n in (288, 30, 19, 512):
+        f = rng.integers(0, 300, (771, n)).astype(np.int32)
         f[rng.random(f.shape) < 0.3] = 0
         f[:3] = 0
         f[1, 5] = 9
         f[2, [0, n - 1]] = 4
+        f[3:6] = 0
+        f[3, :min(n, 36)] = fib[:min(n, 36)]
+        f[4, n - min(n, 36):] = rng.permutation(fib[:min(n, 36)])
+        f[5] = rng.integers(1, 5000, n)
         lw, _, nz = H._sort_leaves(torch.from_numpy(f).to(cuda_device))
         got = tree.depths_kernel(lw, nz)
         want = tree.depths_plain(lw, nz)
+        jump = tree.depths_jump(lw, nz)
         torch.cuda.synchronize()
         assert_same(got, want, f"K1 n={n}")
+        assert_same(got, jump, f"K1 vs jump n={n}")
+        assert int(got[3, :n].max()) == int(nz[3]) - 1
 
 
 def test_k2_kernel_matches_plain(cuda_device):

@@ -16,7 +16,14 @@ import deflate_tpu_torch as D
 from deflate_tpu_torch.models import block_decoder as BD
 from deflate_tpu_torch.models import host_inflate as HI
 from deflate_tpu_torch.runtime import manifest as M
-from torch_helpers import corpus
+from torch_helpers import corpus, jax_native_lib
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native():
+    """The JAX package's native library, loaded before any test here
+    compares against it."""
+    jax_native_lib()
 
 
 def _stream(kind: str):

@@ -18,7 +18,7 @@ from deflate_tpu.models import wave_decoder as JWD
 from deflate_tpu.ops import wave_fill as JWF
 from deflate_tpu_torch.models import wave_decoder as WD
 from deflate_tpu_torch.ops import wave_fill as WF
-from torch_helpers import NM, fill_case, hist_case
+from torch_helpers import NM, fill_case, hist_case, jax_native_lib
 
 
 def test_hist_case_shape():
@@ -86,6 +86,7 @@ def _foreign(name):
 @pytest.mark.parametrize("name", ["history", "overlap", "stored",
                                   "into_stored"])
 def test_inflate_wave_planned_matches_reference(name):
+    jax_native_lib()
     data, enc = _foreign(name)
     plan = WD.skeleton_plan(enc)
     flags = np.asarray(plan["flags"])

@@ -68,6 +68,43 @@ def test_k1_plain_matches_depths_batch_interpret(alphabet):
     assert_same(got_i, want_i, "internal depths")
 
 
+def _jump_case(n: int) -> np.ndarray:
+    """_freqs's rows, a deep row (Fibonacci weights over min(n, 36)
+    symbols: a chain, the deepest leaves at nz - 1) and, at n = 512, a row
+    using every symbol."""
+    fib = [1, 1]
+    while len(fib) < 36:
+        fib.append(fib[-1] + fib[-2])
+    deep = np.zeros((2, n), np.int32)
+    deep[0, :min(n, 36)] = fib[:min(n, 36)]
+    deep[1] = np.random.default_rng(n + 1).integers(1, 5000, n)
+    return np.concatenate([_freqs(n, 12, seed=n), deep])
+
+
+@pytest.mark.parametrize("n", [288, 30, 19, 512])
+def test_k1_jump_matches_depths_batch_interpret(n):
+    """tree.depths_jump (K1's design in torch) equals the Pallas kernel
+    in interpret mode, leaf and internal depths."""
+    f = _jump_case(n)
+    jlw, _, jnz = jax.vmap(JH._sort_leaves)(jnp.asarray(f))
+    want_s, want_i = JPT.depths_batch(jlw, jnz, interpret=True)
+    lw, _, nz = H._sort_leaves(torch.from_numpy(f))
+    got = tree.depths_jump(lw, nz)
+    assert_same(got[:, :n], want_s, "leaf depths")
+    assert_same(got[:, tree.NMAX:tree.NMAX + n], want_i, "internal depths")
+
+
+@pytest.mark.parametrize("n", [288, 30, 19, 512])
+def test_k1_jump_matches_plain(n):
+    """depths_jump equals depths_plain on the whole [T, 1024] output,
+    the zeros past nz included; the deep row reaches depth nz - 1."""
+    lw, _, nz = H._sort_leaves(torch.from_numpy(_jump_case(n)))
+    got = tree.depths_jump(lw, nz)
+    assert_same(got, tree.depths_plain(lw, nz), "K1 layout")
+    deep = len(nz) - 2
+    assert int(got[deep, :n].max()) == int(nz[deep]) - 1
+
+
 def test_code_lengths_match_reference(alphabet):
     n, max_len, f = alphabet
     want = JH.huffman_lengths_batch(jnp.asarray(f), max_len, "xla")

@@ -12,7 +12,15 @@ from deflate_tpu.models import host_inflate as JHI
 from deflate_tpu_torch import native as N
 from deflate_tpu_torch.models import host_inflate as HI
 from deflate_tpu_torch.runtime import manifest as M
-from torch_helpers import corpus
+from torch_helpers import corpus, jax_native_lib
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native():
+    """The JAX package's native library, loaded before any test here
+    compares against it."""
+    jax_native_lib()
+
 
 KEYS = ("parent_bit", "start_bit", "out_len", "flags", "span_bits",
         "out_start", "btype", "hints")

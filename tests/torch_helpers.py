@@ -43,6 +43,44 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def jax_native_lib(attempts: int = 6):
+    """deflate_tpu's native library, loaded, for a test that compares
+    against a JAX-package path that needs it (``skeleton``,
+    ``skeleton_plan``, ``decompress``).
+
+    ``deflate_tpu.native.lib()`` runs ``make`` in every process and
+    remembers a failure for the life of the process; the Makefile links
+    the library in place, so test workers that start together on a fresh
+    checkout can see a failed ``make`` or a half-written file.  Here the
+    load is serialised across processes by a lock file, and a remembered
+    failure is cleared and tried again after a short sleep.  Fails the
+    test (never skips) if the library still does not load."""
+    import fcntl
+    import tempfile
+    import time
+
+    from deflate_tpu import native as JN
+
+    last = None
+    lock = os.path.join(tempfile.gettempdir(), "deflate_tpu_native.lock")
+    with open(lock, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            for i in range(attempts):
+                try:
+                    L = JN.lib()
+                except AttributeError as e:   # a library missing symbols
+                    L, last = None, e
+                if L is not None:
+                    return L
+                JN._lib, JN._tried = None, False
+                time.sleep(0.25 * (i + 1))
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+    pytest.fail(f"deflate_tpu's native library ({JN._SO}) did not load "
+                f"after {attempts} attempts (make -C {JN._DIR}): {last}")
+
+
 def np_i32(x) -> np.ndarray:
     """A torch or JAX array as a numpy int32 array."""
     if isinstance(x, torch.Tensor):

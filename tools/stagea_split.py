@@ -96,26 +96,26 @@ def host_us(torch, fn, n: int = 500) -> float:
     return dt / n * 1e6
 
 
-def ptxas(_build) -> dict:
-    """nvcc -Xptxas -v of csrc/wave_stagea.cu: per kernel, registers,
-    spill stores and loads, and shared memory bytes."""
+def ptxas(_build, source: str = "wave_stagea",
+          names=("decode_mark", "decode_positions", "build_tables")) -> dict:
+    """nvcc -Xptxas -v of csrc/<source>.cu: per kernel (keyed by the
+    first of `names` its mangled name holds, else by that name),
+    registers, spill stores and loads, and shared memory bytes."""
     out_dir = os.path.join(_build.BUILD, "ptxas")
     os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(_build.CSRC, "wave_stagea.cu")
+    src = os.path.join(_build.CSRC, source + ".cu")
     proc = subprocess.run(
         [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
          "-std=c++17", "-O3", "-Xptxas", "-v", "-cubin", "-o",
-         os.path.join(out_dir, "wave_stagea.cubin"), src],
+         os.path.join(out_dir, source + ".cubin"), src],
         capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
-        raise RuntimeError(f"stagea_split: nvcc failed\n{proc.stderr}")
+        raise RuntimeError(f"nvcc {source}.cu failed\n{proc.stderr}")
     res, name = {}, None
     for line in proc.stderr.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = next((k for k in ("decode_mark", "decode_positions",
-                                     "build_tables")
-                         if k in m.group(1)), m.group(1))
+            name = next((k for k in names if k in m.group(1)), m.group(1))
             res[name] = {}
             continue
         if name is None:
