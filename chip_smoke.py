@@ -29,15 +29,16 @@ launched.  Then each kernel is held against its plain PyTorch version on
 the card, on operands its phase gave it, and both are timed with CUDA
 events; the line of kernel results adds each kernel's bound (bytes moved
 over 3.35 TB/s) and, for K3 and K7, one PyTorch scatter of the same
-work; K2's and K3's also get the time of their C entry point alone
-(kernel_only_ms), K2's its ns per chain step and K8's its ns per
-position; K2 (on every call of phases A and B), K4, K5 (on every row)
-and K8 (on every position) are also held against the torch forms of
-their designs (K4's rows must hold records in order without overlap),
-and K1 on every call of phases A and D against its plain version and
-the torch form of its design; K1's result adds its C entry alone;
-K6's adds its time on each corpus quarter's 64 blocks alone
-(quarter_ms).
+work (K7's: an index_add_ of only the live packets' nonzero words, with
+the older scatter_add_ of all lanes beside it as library_all_lanes_ms);
+K1's, K2's, K3's and K7's also get the time of their C entry point
+alone (kernel_only_ms), K2's its ns per chain step and K8's its ns per
+position; K2 (on every call of phases A and B), K4, K5 (on every row),
+K7 and K8 (on every position) are also held against the torch forms of
+their designs (K4's rows must hold records in order without overlap,
+K7's offsets must not decrease), and K1 on every call of phases A and D
+against its plain version and the torch form of its design; K6's result
+adds its time on each corpus quarter's 64 blocks alone (quarter_ms).
 
 Prints the card (nvidia-smi name and power limit), MB/s of every phase,
 one JSON line of kernel results, and as its last line
@@ -676,26 +677,78 @@ def main() -> int:
     results[-1]["quarter_ms"] = {name: k6_quarter_ms(q)
                                  for q, name in enumerate(QUARTERS)}
 
-    def k7_library_ms(c) -> float:
-        """One torch scatter_add_ of the packets' precomputed words."""
+    def k7_library_all_lanes_ms(c) -> float:
+        """One torch scatter_add_ of all 3 x NPK lanes of every row, dead
+        lanes sent to one spare column (the earlier yardstick: mostly the
+        contention of those lanes on that column)."""
         idx, vals = pack.packet_words(*c)
         vals = wrap32(vals)
         dest = torch.zeros((idx.shape[0], pack.OUTW + 1), dtype=torch.int32,
                            device=dev)
         return timed(lambda: dest.scatter_add_(1, idx, vals))
 
+    def k7_library_ms(c) -> float:
+        """One torch index_add_ of only the live packets' nonzero words
+        below OUTW into the flat [B * OUTW] output, indices and values
+        prepared before the timing; it must give the plain words."""
+        idx, vals = pack.packet_words(*c)
+        rows = torch.arange(idx.shape[0], device=dev)[:, None]
+        keep = (idx < pack.OUTW) & (vals != 0)
+        flat = (rows * pack.OUTW + idx)[keep]
+        vals = wrap32(vals[keep])
+        dest = torch.zeros(idx.shape[0] * pack.OUTW, dtype=torch.int32,
+                           device=dev)
+        dest.index_add_(0, flat, vals)
+        require(torch.equal(dest.view(-1, pack.OUTW),
+                            pack.pack_blocks_plain(*c)),
+                "K7's index_add_ yardstick differs from the plain words")
+        results[-1]["library_words"] = int(flat.numel())
+        return timed(lambda: dest.index_add_(0, flat, vals))
+
+    def k7_kernel_only_ms(c) -> float:
+        """dt_pack_blocks alone (no allocation, no checks) into a
+        preallocated output."""
+        out = torch.empty((c[0].shape[0], pack.OUTW), dtype=torch.int32,
+                          device=dev)
+        return timed(lambda: pack.pack_launch(*c, out))
+
     k7 = calls["K7"]
     require(len(k7) == 1, f"K7 ran {len(k7)} times in phase D")
-    npackets = int(k7[0][0].clamp(0, pack.NPK).sum())
+    counts7, off7 = k7[0][0], k7[0][1]
+    npackets = int(counts7.clamp(0, pack.NPK).sum())
+    # K7's contract: offsets >= 0 and not decreasing over [0, count)
+    lane7 = torch.arange(pack.NPK, device=dev)[None, :]
+    live7 = lane7 < counts7[:, None]
+    require(bool(((off7 >= 0) | ~live7).all())
+            and bool(((off7[:, 1:] >= off7[:, :-1]) | ~live7[:, 1:]).all()),
+            "phase D's packet offsets decrease or are negative")
+    # phase D's call against the torch form of the design as well
+    k7_tiles = max_abs_err(torch, pack.pack_blocks_kernel(*k7[0]),
+                           pack.pack_blocks_tiles(*k7[0]))
     check(f"K7 pack_blocks (phase D, {k7[0][1].shape[0]} blocks, "
-          f"{npackets} packets; library_ms: torch scatter_add_ of the "
-          f"precomputed words)", "K7", "deflate_tpu_torch/csrc/pack.cu",
+          f"{npackets} packets, offsets checked monotone; also compared "
+          f"with pack_blocks_tiles; library_ms: torch index_add_ of the "
+          f"live packets' nonzero words, library_all_lanes_ms: one "
+          f"scatter_add_ of all lanes; kernel_only_ms: dt_pack_blocks "
+          f"alone into a preallocated output)", "K7",
+          "deflate_tpu_torch/csrc/pack.cu",
           "deflate_tpu/ops/pallas_pack.py:49", pack.pack_blocks_kernel,
-          pack.pack_blocks_plain, k7, library=k7_library_ms,
+          pack.pack_blocks_plain, k7,
+          cmp=lambda got, want, c: max(max_abs_err(torch, got, want),
+                                       k7_tiles),
           # the live packets' offset and two payload words, the counts,
           # the words out
-          bound_bytes=12 * npackets + nbytes(torch, k7[0][0])
+          bound_bytes=12 * npackets + nbytes(torch, counts7)
           + k7[0][1].shape[0] * pack.OUTW * 4)
+    results[-1]["library_ms"] = sum(k7_library_ms(c) for c in k7)
+    results[-1]["library_all_lanes_ms"] = sum(k7_library_all_lanes_ms(c)
+                                              for c in k7)
+    results[-1]["kernel_only_ms"] = sum(k7_kernel_only_ms(c) for c in k7)
+    log(f"K7: {results[-1]['ms']:.4f} ms, alone "
+        f"{results[-1]['kernel_only_ms']:.4f}, index_add_ "
+        f"{results[-1]['library_ms']:.4f} ({results[-1]['library_words']} "
+        f"words), all-lanes scatter_add_ "
+        f"{results[-1]['library_all_lanes_ms']:.4f} [{card}]")
     k8 = calls["K8"]
     k8_positions = sum(int(c[0].shape[0]) * 64 * c[2] for c in k8)
     # every position of every bucket against the plain version (check's

@@ -23,10 +23,11 @@ from deflate_tpu_torch.ops import wave_fill as WF
 from deflate_tpu_torch.ops import wave_route as WR
 from deflate_tpu_torch.ops import wave_stagea as WS
 from deflate_tpu_torch.runtime import manifest as M
-from torch_helpers import (NM, ROUTE_CASES, assert_same,  # noqa: F401
-                           corpus, cuda_device, fill_case, hist_case,
-                           long_code_case, long_match_streams,
-                           monotone_instance, random_code_case, route_case)
+from torch_helpers import (NM, PACK_CASES, ROUTE_CASES,  # noqa: F401
+                           assert_same, corpus, cuda_device, fill_case,
+                           hist_case, long_code_case, long_match_streams,
+                           monotone_instance, pack_case, random_code_case,
+                           route_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -259,7 +260,10 @@ def test_foreign_and_hintless_paths_on_card(cuda_device):
 
 def test_k7_kernel_matches_plain(cuda_device):
     """Random 0-48-bit packets at every bit phase, one block full to
-    NPK, one empty, and the packet lists of a real level-3 encode."""
+    NPK, one empty, and the packet lists of a real level-3 encode; then
+    every edge case of pack_case against the plain version and the torch
+    form of the design, pack_blocks_tiles, and operands that start off a
+    16-byte line."""
     rng = np.random.default_rng(9)
     B = 4
     counts = np.array([PK.NPK, 0, 5000, 33000], np.int32)
@@ -293,6 +297,23 @@ def test_k7_kernel_matches_plain(cuda_device):
     want = PK.pack_blocks_plain(counts, off, lo, hi)
     torch.cuda.synchronize()
     assert_same(got, want, "K7 level-3 packets")
+    assert_same(got, PK.pack_blocks_tiles(counts, off, lo, hi),
+                "K7 level-3 packets vs tiles")
+
+    for case in PACK_CASES:
+        args = [torch.from_numpy(x).to(cuda_device) for x in pack_case(case)]
+        got = PK.pack_blocks_kernel(*args)
+        torch.cuda.synchronize()
+        assert_same(got, PK.pack_blocks_plain(*args), f"K7 {case}")
+        assert_same(got, PK.pack_blocks_tiles(*args), f"K7 {case} vs tiles")
+    # off, lo and hi as views one int32 past a 16-byte line
+    flat = [torch.cat([torch.zeros(1, dtype=torch.int32, device=cuda_device),
+                       x.reshape(-1)]) for x in args[1:]]
+    views = [f[1:].view(x.shape) for f, x in zip(flat, args[1:])]
+    assert views[0].data_ptr() % 16
+    got = PK.pack_blocks_kernel(args[0], *views)
+    torch.cuda.synchronize()
+    assert_same(got, PK.pack_blocks_plain(*args), "K7 misaligned views")
 
 
 def test_k8_kernel_matches_plain(cuda_device):

@@ -1,8 +1,9 @@
 """Port vs reference, the kernel and scatter emission backends: the packet
 fusion (_emit_fields), the packet stage (_packet_pre, _route_packets,
 _packet_post, build_packets), the scatter placement (emit_block), kernel
-K7's plain version (pack_blocks) against the Pallas kernel in interpret
-mode, and ops/bitpack.py — all with zero tolerance."""
+K7's plain version (pack_blocks) and the torch form of its design
+(pack_blocks_tiles) against the Pallas kernel in interpret mode, and
+ops/bitpack.py — all with zero tolerance."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +16,8 @@ from deflate_tpu.ops import pallas_pack as JPK
 from deflate_tpu_torch.models import encoder as E
 from deflate_tpu_torch.ops import bitpack as BP
 from deflate_tpu_torch.ops import pack as PK
-from torch_helpers import BLOCK, assert_same, corpus
+from torch_helpers import (BLOCK, PACK_CASES, assert_same, corpus, np_i32,
+                           pack_case, pack_spill)
 
 LEVEL = 2
 
@@ -123,6 +125,7 @@ def test_pack_blocks_plain_matches_interpret(planned):
     got = PK.pack_blocks(counts, off, lo, hi)
     assert got.shape == (4, PK.OUTW)
     assert_same(got, jw, "packed words")
+    assert_same(PK.pack_blocks_tiles(counts, off, lo, hi), jw, "tiles")
     # and through _finish_block these are the scatter backend's words
     tb, tn, _, _, pad, _ = args
     assert_same(E._finish_block(got[:, :E.WB], tb, tn, stored, pad, nbits),
@@ -148,6 +151,31 @@ def test_pack_blocks_plain_random_packets():
     got = PK.pack_blocks(*(torch.from_numpy(x)
                            for x in (counts, off, lo, hi)))
     assert_same(got, jw, "packed words")
+
+
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_pack_blocks_tiles_matches_plain_and_interpret(case):
+    """The torch form of K7's design (tiles, searchsorted ranges from
+    W0 - 2, dead tiles, zero payloads skipped) against the plain version
+    and the Pallas kernel (interpret) on every edge case of pack_case.
+
+    Words at or past OUTW are dropped by the contract; in interpret mode
+    the Pallas kernel's out-of-range SMEM stores clamp onto word OUTW - 1
+    instead, so there the reference's last word is ours ORed with the
+    row's dropped words (pack_spill, zero in every other case)."""
+    counts, off, lo, hi = pack_case(case)
+    args = [torch.from_numpy(x) for x in (counts, off, lo, hi)]
+    got = PK.pack_blocks_tiles(*args)
+    assert got.shape == (len(counts), PK.OUTW)
+    assert_same(got, PK.pack_blocks_plain(*args), f"{case}: tiles vs plain")
+    jw = np_i32(JPK.pack_blocks(*(jnp.asarray(x)
+                                  for x in (counts, off, lo, hi)),
+                                interpret=True))
+    spill = pack_spill(counts, off, lo, hi)
+    assert (spill != 0).any() == (case == "past_outw")
+    want = np_i32(got)
+    want[:, -1] |= spill
+    assert_same(want, jw, f"{case}: tiles vs interpret")
 
 
 @pytest.mark.parametrize("batched", [False, True])

@@ -21,6 +21,7 @@ if ROOT not in sys.path:
 
 from bench import make_corpus  # noqa: E402
 from deflate_tpu_torch.ops import wave as W  # noqa: E402
+from deflate_tpu_torch.ops.pack import NPK, OUTW, TILE  # noqa: E402
 from deflate_tpu_torch.utils import tables as T  # noqa: E402
 
 # test files run in parallel worker processes; keep each to a few threads
@@ -163,6 +164,134 @@ def route_case(seed, P, left, B, L, rounds, kind):
     pays = [rng.integers(-2**31, 2**31, (B, L)).astype(np.int32)
             for _ in range(P)]
     return pays, delta.astype(np.int32)
+
+
+# K7 cases (pack_case); each holds offsets that do not decrease over
+# [0, count), zero payloads past count and garbage offsets there
+PACK_CASES = ["random_phases", "count_0_and_npk", "zero_piles",
+              "tile_straddle", "wide_64", "past_outw"]
+
+
+def _pack_row(rng, n, fixed=(), wmax=8, start=0, limit=None):
+    """Offsets and widths of up to n packets from bit `start`: random
+    fillers of 0..wmax bits, and the (offset, width) packets of `fixed`
+    (ascending, not overlapping) exactly where they say, a filler
+    closing each gap; cut before the first packet that ends past
+    `limit` bits."""
+    offs, widths, cur = [], [], start
+    for o, w in list(fixed) + [(None, None)]:
+        while len(offs) < n and (o is None or cur + wmax < o):
+            fw = int(rng.integers(0, wmax + 1))
+            offs.append(cur)
+            widths.append(fw)
+            cur += fw
+        if o is None or len(offs) >= n:
+            break
+        if cur < o:
+            offs.append(cur)
+            widths.append(o - cur)
+        offs += [o]
+        widths += [w]
+        cur = o + w
+    o, w = np.asarray(offs[:n], np.int64), np.asarray(widths[:n], np.int64)
+    if limit is not None:
+        keep = int(np.searchsorted(o + w > limit, True))
+        o, w = o[:keep], w[:keep]
+    return o, w
+
+
+def pack_case(name: str):
+    """(counts int32 [B], off, lo, hi int32 [B, NPK]) of a PACK_CASES
+    entry; payloads fill their widths (up to 64 bits: bits 32..63 in hi)
+    with the top bit set."""
+    rng = np.random.default_rng(PACK_CASES.index(name) + 70)
+    rows = []                                     # (offsets, widths)
+    if name == "random_phases":                   # 0-48 bits, every phase
+        for n in (600, 17, 0, 595):
+            w = rng.integers(0, 49, n)
+            rows.append((np.cumsum(w) - w, w))
+    elif name == "count_0_and_npk":
+        w = np.where(rng.random(NPK) < 0.1, rng.integers(17, 49, NPK),
+                     rng.integers(0, 6, NPK))
+        rows = [([], []), (np.cumsum(w) - w, w)]
+    elif name == "zero_piles":
+        # a stored block's 3 header packets and 659 zero lanes; 658
+        # zero-width lanes after a 17-bit preamble, then tokens; a pile
+        # of 283 at the last word of tile 0, then tokens past it
+        rows.append(([0, 3, 35] + [51] * 659, [3, 32, 16] + [0] * 659))
+        o, w = _pack_row(rng, 3000, wmax=12, start=17)
+        rows.append(([0] + [17] * 658 + list(o), [17] + [0] * 658 + list(w)))
+        rows.append(_pack_row(rng, 6000, [(32 * (TILE - 1) + 9, 0)] * 283,
+                              wmax=16))
+    elif name == "tile_straddle":
+        # for every tile boundary W0, a 48- or 64-bit packet from word
+        # W0 - 2 (bits 20 and 1) or from W0 - 1 (bits 31 and 17), one
+        # kind a row; then a row that ends with such a packet
+        for word, bit, width in ((2, 20, 48), (1, 31, 48), (2, 1, 64),
+                                 (1, 17, 64)):
+            fixed = [(32 * (w0 - word) + bit, width)
+                     for w0 in range(TILE, OUTW, TILE)]
+            rows.append(_pack_row(rng, NPK, fixed, wmax=20,
+                                  limit=32 * OUTW))
+        # the row's last packet from word 2 TILE - 2 into the next tile
+        last = 32 * (2 * TILE - 2) + 20
+        o, w = _pack_row(rng, NPK, [(last, 48)], wmax=20, limit=last)
+        rows.append((list(o) + [last], list(w) + [48]))
+    elif name == "wide_64":                       # 33-64 bits, next at end
+        for n in (900, 4100):
+            w = rng.integers(33, 65, n)
+            w[::7] = 64
+            rows.append((np.cumsum(w) - w, w))
+    elif name == "past_outw":
+        # packets across word OUTW - 1 and past OUTW, the last ones
+        # wholly beyond it
+        base = 32 * (OUTW - 3)
+        rows.append(_pack_row(rng, 20000, [
+            (base + 7, 64), (base + 71, 64), (base + 135, 48),
+            (base + 183, 40), (base + 300, 64)], wmax=40))
+        rows.append(_pack_row(rng, 100, [(32 * (OUTW - 1) + 31, 33)],
+                              start=32 * (OUTW - 1) - 200))
+    else:
+        raise KeyError(name)
+    B = len(rows)
+    counts = np.zeros(B, np.int32)
+    off = rng.integers(0, 1 << 20, (B, NPK)).astype(np.int32)  # garbage
+    val = np.zeros((B, NPK), np.uint64)
+    for b, (o, w) in enumerate(rows):
+        o, w = np.asarray(o, np.int64), np.asarray(w, np.uint64)
+        counts[b] = n = len(o)
+        off[b, :n] = o
+        v = rng.integers(0, 1 << 63, n, dtype=np.uint64) * np.uint64(2) \
+            + rng.integers(0, 2, n).astype(np.uint64)
+        full = w >= 64
+        mask = np.where(full, np.uint64(0),
+                        (np.uint64(1) << np.minimum(w, np.uint64(63)))
+                        - np.uint64(1))
+        v = np.where(full, v, v & mask)
+        top = np.where(w > 0, np.uint64(1) << (np.maximum(w, np.uint64(1))
+                                               - np.uint64(1)), np.uint64(0))
+        val[b, :n] = v | top
+    lo = (val & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    hi = (val >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    return counts, off, lo, hi
+
+
+def pack_spill(counts, off, lo, hi) -> np.ndarray:
+    """Per row, the OR of the live packets' shifted words at or past OUTW
+    (the words the contract drops)."""
+    B = len(counts)
+    spill = np.zeros(B, np.uint64)
+    for b in range(B):
+        n = int(counts[b])
+        o = off[b, :n].astype(np.int64)
+        v = lo[b, :n].view(np.uint32).astype(object) \
+            | (hi[b, :n].view(np.uint32).astype(object) << 32)
+        for ob, vb in zip(o, v):
+            shifted = vb << int(ob & 31)
+            for k in range(3):
+                if (ob >> 5) + k >= OUTW:
+                    spill[b] |= np.uint64((shifted >> (32 * k)) & 0xFFFFFFFF)
+    return spill.astype(np.uint32).view(np.int32)
 
 
 def fill_case(B):
