@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from deflate_tpu_torch/csrc/ (one nvcc per
-source, all at once) and the native host walk (g++), then drives five
+source, all at once) and the native host walk (g++), then drives six
 paths on an 8 MiB mixed corpus (256 blocks of 32 KiB), each with every
 kernel count set to 0 just before it and read just after:
 
@@ -22,7 +22,18 @@ kernel count set to 0 just before it and read just after:
      K3, placement on K7); stream, manifest and hints must be identical;
   E  hinted ``decode_all`` of D's stream with DT_STAGEAB_PALLAS=0: stage
      A at every bit phase on K8, the mark automaton in torch, K3, K4 —
-     and K2 not at all.
+     and K2 not at all;
+  F  the speculative decoder (models/decoder.py, torch array code, no
+     kernel of its own) on the card: the inputs of speculative_cases()
+     through ``decompress(force_device=True)`` — a 50,000-byte stored
+     block, corrupt streams (InflateError after both capacity
+     configurations flag them, the only calls of the host decoder) and
+     wrong out_size values — then phase A's stream through
+     ``decoder.inflate_device`` (256 blocks, max_blocks 512).
+
+Phases A, B and E parse block headers with the native walk
+(``ops/wave.parse_headers_host``); on phase A's and B's offsets it is
+held against the Python walk, and both are timed.
 
 Each phase checks its output against the input and that its kernels
 launched.  Then each kernel is held against its plain PyTorch version on
@@ -86,6 +97,78 @@ def make_corpus(rng, nbytes: int) -> bytes:
     return np.concatenate(segs).tobytes()
 
 
+def deflate_raw(data: bytes, level: int,
+                strategy: int = zlib.Z_DEFAULT_STRATEGY) -> bytes:
+    co = zlib.compressobj(level, zlib.DEFLATED, -15, 8, strategy)
+    return co.compress(data) + co.flush()
+
+
+def word_text(rng, nbytes: int, nwords: int = 300) -> bytes:
+    """nbytes of text: random picks from nwords words of 2-8 lowercase
+    letters, all drawn from rng, one space after each word."""
+    words = [bytes(rng.integers(97, 123, n, dtype=np.uint8)) + b" "
+             for n in rng.integers(2, 9, nwords)]
+    out = bytearray()
+    while len(out) < nbytes:
+        out += words[int(rng.integers(0, nwords))]
+    return bytes(out[:nbytes])
+
+
+def corrupt_streams():
+    """Thirty corrupt zlib-6 streams of a 6,000-byte word text (words
+    from default_rng(1)), each with 1-2 bits flipped at positions drawn
+    from the same generator: [(flipped bit positions, stream)]."""
+    rng = np.random.default_rng(1)
+    good = deflate_raw(word_text(rng, 6000), 6)
+    out = []
+    for _ in range(30):
+        flips = tuple(sorted(int(p) for p in rng.integers(
+            0, 8 * len(good), int(rng.integers(1, 3)))))
+        bad = bytearray(good)
+        for p in flips:
+            bad[p >> 3] ^= 1 << (p & 7)
+        out.append((flips, bytes(bad)))
+    return out
+
+
+# the corrupt streams of corrupt_streams() that the skeleton walk and K6
+# reject, so that they reach the speculative decoder (the other 26 still
+# parse as DEFLATE and decode, to other bytes, through the wave path)
+SPECULATIVE_FLIPS = ((2342, 15697), (3134, 18823), (3983, 10076), (4447,))
+
+
+def speculative_cases():
+    """The inputs that only the speculative device decoder serves:
+    [(name, raw stream, out_size, the bytes it decodes to, or None where
+    the decode must raise InflateError)].
+
+    1. one stored block of 50,000 random lowercase bytes (longer than
+       32 KiB);
+    2. the corrupt streams of SPECULATIVE_FLIPS;
+    3. five streams of a 60,000-byte word text (default_rng(5)) with a
+       wrong out_size, len + 1 and len - 1: zlib level 1, level 9,
+       level 6 Z_FILTERED, level 6 Z_FIXED, and level 6 on 40,000 bytes
+       of the text with 20,000 random bytes in the middle."""
+    plain = bytes(np.random.default_rng(0).integers(97, 123, 50000,
+                                                    dtype=np.uint8))
+    cases = [("stored_50000", deflate_raw(plain, 0), len(plain), plain)]
+    cases += [(f"corrupt_{'_'.join(map(str, f))}", s, None, None)
+              for f, s in corrupt_streams() if f in SPECULATIVE_FLIPS]
+    rng = np.random.default_rng(5)
+    text = word_text(rng, 60000)
+    mixed = text[:20000] + bytes(rng.integers(0, 256, 20000,
+                                              dtype=np.uint8)) \
+        + text[20000:40000]
+    for name, s, d in (
+            ("level1", deflate_raw(text, 1), text),
+            ("level9", deflate_raw(text, 9), text),
+            ("filtered", deflate_raw(text, 6, zlib.Z_FILTERED), text),
+            ("fixed", deflate_raw(text, 6, zlib.Z_FIXED), text),
+            ("mixed", deflate_raw(mixed, 6), mixed)):
+        cases += [(f"{name}_size{k:+d}", s, len(d) + k, d) for k in (1, -1)]
+    return cases
+
+
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
@@ -97,17 +180,22 @@ def require(ok: bool, what: str) -> None:
 
 
 class Capture:
-    """Wraps a kernel entry point and keeps the operands of every call."""
+    """Wraps a module's function and keeps the operands of every call,
+    and with keep_results its results too."""
 
-    def __init__(self, mod, name: str):
+    def __init__(self, mod, name: str, keep_results: bool = False):
         self.mod, self.name = mod, name
         self.fn = getattr(mod, name)
-        self.calls = []
+        self.calls, self.results = [], []
+        self.keep_results = keep_results
         setattr(mod, name, self)
 
     def __call__(self, *args, **kw):
         self.calls.append(args + tuple(kw.values()))
-        return self.fn(*args, **kw)
+        out = self.fn(*args, **kw)
+        if self.keep_results:
+            self.results.append(out)
+        return out
 
     def restore(self):
         setattr(self.mod, self.name, self.fn)
@@ -160,10 +248,12 @@ def main() -> int:
     import deflate_tpu_torch as D
     from deflate_tpu_torch import _build, native
     from deflate_tpu_torch.models import block_decoder as BD
+    from deflate_tpu_torch.models import decoder as DEC
+    from deflate_tpu_torch.models import host_inflate as HI
     from deflate_tpu_torch.models import wave_decoder as WD
     from deflate_tpu_torch.models import encoder as E
     from deflate_tpu_torch.ops import block_inflate, pack, tree, \
-        wave_fill, wave_route, wave_stagea
+        wave, wave_fill, wave_route, wave_stagea
     from deflate_tpu_torch.runtime import manifest as M
     from deflate_tpu_torch.utils.bits import wrap32
 
@@ -294,6 +384,25 @@ def main() -> int:
         f"MB/s; redirected host decode: {t_host:.3f} s = "
         f"{mb / t_host:.2f} MB/s")
 
+    # ---- the native header parse against the Python walk ---------------
+    def header_parse_ms(fn, stream, offsets) -> tuple[dict, float]:
+        fn(stream, offsets)                   # warm
+        t0 = time.perf_counter()
+        out = fn(stream, offsets)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for label, hs_, ho in (("A", stream, offs),
+                           ("B", raw, plan["parent_bit"])):
+        nat, t_nat = header_parse_ms(wave.parse_headers_host, hs_, ho)
+        py, t_py = header_parse_ms(wave._parse_headers_host_py, hs_, ho)
+        require(sorted(nat) == sorted(py)
+                and all(np.array_equal(nat[k], py[k]) for k in py),
+                f"phase {label}: the native header parse differs from "
+                f"the Python walk")
+        say(f"{label} header parse of {len(ho)} blocks: native walk "
+            f"{t_nat:.2f} ms, Python walk {t_py:.2f} ms; equal on every "
+            f"key")
+
     # ---- phase C: hintless manifest, every block through K6 ------------
     def phase_c():
         s, m = M.compress_with_manifest(data, level=2, hints=False,
@@ -379,6 +488,67 @@ def main() -> int:
         f"in {t_e:.3f} s = {mb / t_e:.2f} MB/s; K8 {le['K8']}, K3 "
         f"{le['K3']}, K4 {le['K4']}, K2 {k2_in_e} launches, 0 blocks on "
         f"the host")
+
+    # ---- phase F: the speculative decoder (torch array code, no kernel) -
+    # the inputs that neither wave path nor K6 serves, through
+    # decompress(force_device=True); then phase A's 8 MiB level-2 stream
+    # through the decoder itself (256 blocks, max_blocks 512)
+    def phase_f():
+        host = Capture(HI, "inflate_raw")
+        dec = Capture(DEC, "decode_stream", keep_results=True)
+        try:
+            for name, sraw, size, want in speculative_cases():
+                n_host, n_dec = len(host.calls), len(dec.calls)
+                st = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    got = D.decompress(sraw, size, device=dev,
+                                       force_device=True, stats=st)
+                except D.InflateError:
+                    got = None
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                flagged = [bool(r[3]) for r in dec.results[n_dec:]]
+                hosted = len(host.calls) - n_host
+                if want is None:
+                    require(got is None and flagged == [True, True]
+                            and hosted == 1,
+                            f"F {name}: {flagged}, {hosted} host calls")
+                    say(f"F {name}: {len(sraw)} bytes, InflateError "
+                        f"after both configurations flagged it, in "
+                        f"{dt:.3f} s")
+                else:
+                    require(got == want and hosted == 0 and flagged
+                            and not flagged[-1]
+                            and st["device_path"] == "speculative",
+                            f"F {name}: {st}, {flagged}, {hosted} host "
+                            f"calls")
+                    say(f"F {name}: {len(want)} bytes through "
+                        f"'speculative' (configurations flagged "
+                        f"{flagged}) in {dt:.3f} s = "
+                        f"{len(want) / 1e6 / dt:.2f} MB/s")
+            n_dec = len(dec.calls)
+            require(DEC.inflate_device(stream, len(data), device=dev)
+                    == data, "F: the level-2 stream differs")   # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = DEC.inflate_device(stream, len(data), device=dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            cfg = [c[2:] for c in dec.calls[n_dec:]]
+            require(out == data and len(host.calls) == 4
+                    and cfg == [(DEC.IS.SPAN, 32768, 512)] * 2,
+                    f"F level-2 stream: configurations {cfg}, "
+                    f"{len(host.calls)} host calls")
+            say(f"F level-2 stream through decoder.inflate_device: "
+                f"{len(man.blocks)} blocks, max_blocks 512, {len(data)} "
+                f"bytes in {dt:.3f} s = {mb / dt:.2f} MB/s")
+        finally:
+            host.restore()
+            dec.restore()
+
+    run_phase([], phase_f)
 
     # ---- each kernel against its plain version, phase operands ---------
     def timed(fn, reps: int = KERNEL_REPS) -> float:

@@ -26,7 +26,10 @@ do); device=None in ``decompress``, ``decompress_zlib`` and
 ``decode_all`` is the host decoder (the reference's device=False).  On a
 CUDA device every kernel of a path (ops/tree.py, ops/wave_stagea.py,
 ops/wave_route.py, ops/wave_fill.py, ops/block_inflate.py) launches its
-CUDA C++ kernel from ``csrc/``, built by ``_build.py`` at first use.
+CUDA C++ kernel from ``csrc/``, built by ``_build.py`` at first use.  A
+forced stream that neither the wavefront decoder nor K6 serves goes to
+the speculative decoder (models/decoder.py): torch array code on the
+same device, as the reference's decoder there is plain XLA.
 """
 from __future__ import annotations
 
@@ -49,10 +52,13 @@ def decompress(data, out_size: int | None = None, device="cuda",
     still exist.  force_device=True is the only way onto the card; the
     stream decodes on `device` through the skeleton walk and the
     wavefront decoder (kernels K2, K3, K5, or K4 for self-contained
-    plans), else through kernel K6 block by block.  device=None is the
-    host decoder.  stats: an empty dict that receives a run report,
-    including which decoder served (``device_path``: "wave",
-    "pallas_scalar", "native_host") and ``redirected``.
+    plans), else through kernel K6 block by block, else through the
+    speculative decoder (models/decoder.py, torch array code), which
+    takes out_size only as a hint and falls back to the host decoder
+    when it flags the stream.  device=None is the host decoder.  stats:
+    an empty dict that receives a run report, including which decoder
+    served (``device_path``: "wave", "pallas_scalar", "speculative",
+    "native_host") and ``redirected``.
     """
     if device is not None:
         from deflate_tpu_torch._build import torch_device
@@ -84,7 +90,8 @@ def _decompress_impl(raw: bytes, out_size, device, path: dict | None,
     the call in path["path"].  A kernel's build or launch error
     propagates; the next decoder is tried only where a path declines the
     stream (no plan, a window past the largest bucket, a flagged block,
-    another output size, PallasDecodeError)."""
+    another output size, PallasDecodeError).  The last device decoder,
+    the speculative one, ends in the host decoder itself."""
     def _mark(p):
         if path is not None:
             path["path"] = p
@@ -108,10 +115,10 @@ def _decompress_impl(raw: bytes, out_size, device, path: dict | None,
             return out
         except _bd.PallasDecodeError:
             pass
-        raise NotImplementedError(
-            "the speculative device decoder (models/decoder.py, "
-            "ROADMAP queue 1 item 13) is not ported; decode with "
-            "device=None")
+        from deflate_tpu_torch.models import decoder as _dd
+
+        _mark("speculative")
+        return _dd.inflate_device(raw, out_size, device=device)
     from deflate_tpu_torch import native as _nat
 
     try:

@@ -9,6 +9,8 @@ pure-Python stand-in behind these functions.
   skeleton(data)            virtual-block plan of a raw DEFLATE stream
                             (the foreign-stream device decode's walk)
   inflate(data, cap)        host decode of a raw stream
+  parse_headers(data, offs) batched block-header walk (the wavefront
+                            decoder's host prep, ops/wave.py)
 """
 from __future__ import annotations
 
@@ -77,6 +79,11 @@ def lib() -> ctypes.CDLL:
             L.dt_skeleton.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
                                       ctypes.c_int64, ctypes.c_int64, i64p,
                                       u8p, i64p, i64p]
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            L.dt_parse_headers.restype = ctypes.c_int
+            L.dt_parse_headers.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                           i64p, ctypes.c_int64, i64p, i64p,
+                                           i64p, u8p, i32p, i32p, u8p]
             _lib = L
         return _lib
 
@@ -101,6 +108,38 @@ def inflate(data: bytes, out_cap: int, exact: bool = False) -> bytes:
             out_cap = min(out_cap * 4, limit)
             continue
         raise ValueError(f"inflate: {DT_ERRORS.get(rc, rc)}")
+
+
+def parse_headers(data: bytes, bit_offsets):
+    """Batched block-header walk (dt_parse_headers in inflate.cpp): for
+    each block at bit_offsets, its btype, data_start (absolute bit of
+    the first symbol or stored payload), stored_len, err (a parse
+    failure), hlit, hdist and the raw code lengths lens [B, 320]
+    (litlen then dist, zero padded), as numpy arrays.  The canonical
+    decode metadata is built from them by ops/wave._canon_meta_batch."""
+    L = lib()
+    offs = np.ascontiguousarray(bit_offsets, np.int64)
+    B = len(offs)
+    btype = np.zeros(B, np.int64)
+    dstart = np.zeros(B, np.int64)
+    slen = np.zeros(B, np.int64)
+    err = np.zeros(B, np.uint8)
+    hlit = np.zeros(B, np.int32)
+    hdist = np.zeros(B, np.int32)
+    lens = np.zeros((B, 320), np.uint8)
+    p = ctypes.POINTER
+    L.dt_parse_headers(
+        data, len(data), offs.ctypes.data_as(p(ctypes.c_int64)), B,
+        btype.ctypes.data_as(p(ctypes.c_int64)),
+        dstart.ctypes.data_as(p(ctypes.c_int64)),
+        slen.ctypes.data_as(p(ctypes.c_int64)),
+        err.ctypes.data_as(p(ctypes.c_uint8)),
+        hlit.ctypes.data_as(p(ctypes.c_int32)),
+        hdist.ctypes.data_as(p(ctypes.c_int32)),
+        lens.ctypes.data_as(p(ctypes.c_uint8)))
+    return {"btype": btype, "data_start": dstart, "stored_len": slen,
+            "err": err.astype(bool), "hlit": hlit, "hdist": hdist,
+            "lens": lens}
 
 
 def skeleton(data: bytes):

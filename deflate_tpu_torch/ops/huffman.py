@@ -61,6 +61,49 @@ def canonical_codes(lengths: torch.Tensor):
     return bit_reverse(code, lengths), lengths
 
 
+def decode_tables(lengths: torch.Tensor):
+    """Canonical-decode vectors of one code, lengths int32 [n]: first[l]
+    (first code of length l), lim[l] (first + count), base[l] (symbols
+    of length < l), count[l], all int32 [16], and syms int32 [n], the
+    symbols by (length, symbol) with unused ones last.  The sort keys
+    are unique, so the stable argsort only pins the tie rule down."""
+    n = lengths.shape[0]
+    dev = lengths.device
+    L = torch.arange(1, MAX_CODE_LEN + 1, dtype=I32, device=dev)
+    counts = (lengths[:, None] == L).sum(0).to(I32)
+    first = _next_codes(counts)
+    cnt16 = torch.cat([torch.zeros(1, dtype=I32, device=dev), counts])
+    idx = torch.arange(n, dtype=I32, device=dev)
+    key = torch.where(lengths > 0, lengths * 1024 + idx, (1 << 30) + idx)
+    return {"first": first, "lim": first + cnt16,
+            "base": (torch.cumsum(cnt16, 0) - cnt16).to(I32),
+            "syms": torch.argsort(key, stable=True).to(I32),
+            "count": cnt16}
+
+
+def decode_one(bits15: torch.Tensor, tbl):
+    """Decode one canonical symbol from the next 15 stream bits (LSB
+    first, int32 of any shape).  Returns (symbol, length) int32; length
+    0 (symbol -1) marks an invalid code.  The reference's 15 compare /
+    select rounds run side by side on a last axis of 15 lengths; the
+    shortest length that holds the code wins, as the first hit does
+    there."""
+    dev = bits15.device
+    L = torch.arange(1, MAX_CODE_LEN + 1, dtype=I32, device=dev)
+    # the first l bits, first bit most significant
+    c = bit_reverse(bits15[..., None] & ((1 << L) - 1), L)
+    first, lim = tbl["first"][1:], tbl["lim"][1:]
+    hit = (tbl["count"][1:] > 0) & (c >= first) & (c < lim)
+    l0 = torch.where(hit, L - 1, MAX_CODE_LEN).min(-1).values
+    found = l0 < MAX_CODE_LEN
+    l0 = l0.clamp(max=MAX_CODE_LEN - 1)[..., None].to(I64)
+    pos = (tbl["base"][1:] + c - first).gather(-1, l0)[..., 0]
+    nsyms = tbl["syms"].shape[0]
+    sym = tbl["syms"][pos.clamp(0, nsyms - 1).to(I64)]
+    return (torch.where(found, sym, -1).to(I32),
+            torch.where(found, l0[..., 0] + 1, 0).to(I32))
+
+
 def _sort_leaves(freq: torch.Tensor):
     """freq [B, n] -> (lw sorted weights, sperm symbol order, nz [B]):
     ascending by (frequency, symbol), unused symbols as an INF tail."""

@@ -135,8 +135,103 @@ def parse_headers_host(stream: bytes, bit_offsets):
     metadata (numpy): canonical-decode scalars l_*/d_* [B, 16] (and
     l_litmask [B, 16, 8]) as int32 bit patterns, btype, data_start
     (absolute bit of the first symbol, or of a stored payload),
-    stored_len and hdr_err [B].  A pure-Python walk over the blocks (the
-    reference's native fast path is not ported yet)."""
+    stored_len and hdr_err [B].
+
+    The native library walks the sequential header bits
+    (native.parse_headers, dt_parse_headers) and _canon_meta_batch
+    computes the canonical-decode scalars in vectorised numpy.  Unlike
+    the reference, which takes its pure-Python walk when the library
+    does not load, a library that fails to build or load raises here:
+    the port's skeleton walk needs the same library, so there is no
+    quiet slow path.  _parse_headers_host_py stays as the differential
+    oracle of the tests."""
+    from deflate_tpu_torch import native
+
+    return _canon_meta_batch(native.parse_headers(stream, bit_offsets))
+
+
+def _canon_meta_batch(raw):
+    """Vectorised _canon_meta over the native header walk's raw output.
+
+    raw: dict from native.parse_headers (btype, data_start, stored_len,
+    err, hlit, hdist, lens [B, 320] uint8).  Returns the exact
+    parse_headers_host dict (held against _parse_headers_host_py by the
+    tests)."""
+    B = len(raw["btype"])
+    lens = raw["lens"].astype(np.int64)          # [B, 320]
+    hlit = raw["hlit"].astype(np.int64)
+    hdist = raw["hdist"].astype(np.int64)
+    is_fixed = raw["btype"] == 1
+    if is_fixed.any():
+        lens = lens.copy()
+        lens[is_fixed, :288] = np.asarray(T.FIXED_LITLEN_LENGTHS, np.int64)
+        lens[is_fixed, 288:318] = np.asarray(T.FIXED_DIST_LENGTHS[:30],
+                                             np.int64)
+        hlit = np.where(is_fixed, 288, hlit)
+        hdist = np.where(is_fixed, 30, hdist)
+
+    rows = np.arange(B)[:, None]
+    Ll = np.where(np.arange(288)[None, :] < hlit[:, None], lens[:, :288], 0)
+    Ld = lens[rows, np.minimum(hlit[:, None] + np.arange(32)[None, :], 319)]
+    Ld = np.where(np.arange(32)[None, :] < hdist[:, None], Ld, 0)[:, :30]
+
+    def counts(L):
+        """[B, 16] number of symbols of each length (length 0 not
+        counted)."""
+        cnt = np.bincount((L + 16 * rows).ravel(),
+                          minlength=16 * B).reshape(B, 16).astype(np.int64)
+        cnt[:, 0] = 0
+        return cnt
+
+    def canon(L):
+        cnt = counts(L)
+        kraft = (cnt[:, 1:] << (15 - np.arange(1, 16))[None, :]).sum(1)
+        oversub = (cnt.sum(1) > 0) & (kraft > (1 << 15))
+        first = np.zeros((B, 16), np.int64)
+        code = np.zeros(B, np.int64)
+        for l in range(1, 16):
+            code = (code + cnt[:, l - 1]) << 1
+            first[:, l] = code
+        return first, first + cnt, np.cumsum(cnt, axis=1) - cnt, oversub
+
+    l_first, l_lim, l_base, ov_l = canon(Ll)
+    d_first, d_lim, d_base, ov_d = canon(Ld)
+
+    # meta: literals of each length | has_eob << 9
+    meta = counts(Ll[:, :256]) | ((np.arange(16)[None, :]
+                                   == Ll[:, 256:257]).astype(np.int64) << 9)
+    meta[:, 0] = 0
+
+    def bitmask(M, nbits):
+        """[B, 16] masks: bit j of mask[:, l] is (M[:, j] == l)."""
+        out = np.zeros((B, 16), np.int64)
+        w = (1 << np.arange(nbits, dtype=np.int64))[None, :]
+        for l in range(1, 16):
+            out[:, l] = ((M == l) * w).sum(1)
+        return out
+
+    litmask = np.zeros((B, 16, 8), np.int64)
+    for l in range(1, 16):
+        bits = np.ascontiguousarray(Ll[:, :256] == l)
+        litmask[:, l, :] = np.packbits(bits, axis=1, bitorder="little") \
+            .view("<u4").astype(np.int64)
+
+    is_huff = (raw["btype"] == 1) | (raw["btype"] == 2)
+    res = {"l_lim": l_lim, "l_first": l_first, "l_base": l_base,
+           "l_meta": meta, "l_mask": bitmask(Ll[:, 257:288], 31),
+           "l_litmask": litmask, "d_lim": d_lim, "d_first": d_first,
+           "d_base": d_base, "d_mask": bitmask(Ld, 30)}
+    res = {k: _u32(v) for k, v in res.items()}
+    res["btype"] = raw["btype"].astype(np.int64)
+    res["data_start"] = raw["data_start"].astype(np.int64)
+    res["stored_len"] = raw["stored_len"].astype(np.int64)
+    res["hdr_err"] = (raw["err"] | (is_huff & (ov_l | ov_d))).astype(bool)
+    return res
+
+
+def _parse_headers_host_py(stream: bytes, bit_offsets):
+    """Pure-Python per-block walk: the differential oracle of
+    parse_headers_host (the reference's fallback, kept for the tests)."""
     B = len(bit_offsets)
     btype = np.zeros(B, np.int64)
     dstart = np.zeros(B, np.int64)

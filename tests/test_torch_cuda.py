@@ -12,10 +12,14 @@ import pytest
 import torch
 
 import deflate_tpu_torch as D
+from chip_smoke import deflate_raw, speculative_cases
+from deflate_tpu_torch.models import decoder as DEC
 from deflate_tpu_torch.models import encoder as E
 from deflate_tpu_torch.models import wave_decoder as WD
+from deflate_tpu_torch.ops import bitpack as BP
 from deflate_tpu_torch.ops import block_inflate as BI
 from deflate_tpu_torch.ops import huffman as H
+from deflate_tpu_torch.ops import inflate_scan as IS
 from deflate_tpu_torch.ops import pack as PK
 from deflate_tpu_torch.ops import tree
 from deflate_tpu_torch.ops import wave as W
@@ -424,3 +428,33 @@ def test_level3_kernel_pack_and_split_decode_on_card(cuda_device,
     assert zlib.decompress(s, -15) == data
     monkeypatch.setenv("DT_STAGEAB_PALLAS", "0")
     assert M.decode_all(s, m, device=cuda_device) == data
+
+
+def test_speculative_decoder_on_card_equals_cpu(cuda_device):
+    """decode_stream on the card against the CPU (every output, in
+    full), and the inputs only the speculative decoder serves through
+    decompress on the card."""
+    text = bytes(np.random.default_rng(6).integers(97, 117, 30000,
+                                                    dtype=np.uint8))
+    corrupt = bytearray(deflate_raw(text, 9))
+    corrupt[5] ^= 0xFF
+    for raw in (deflate_raw(text, 1), deflate_raw(text, 9),
+                deflate_raw(b"\0\1\2" * 5000, 0),
+                deflate_raw(b"a" * 100000, 6), bytes(corrupt)):
+        w, nbits = BP.bytes_to_words(raw)
+        w = torch.from_numpy(w.view(np.int32))
+        got = DEC.decode_stream(w.to(cuda_device), nbits, IS.SPAN, 1 << 18, 8)
+        want = DEC.decode_stream(w, nbits, IS.SPAN, 1 << 18, 8)
+        for g, x, name in zip(got, want, ("out", "total", "nblocks",
+                                           "error")):
+            assert_same(g, x, name)
+    for name, raw, size, data in speculative_cases():
+        st = {}
+        if data is None:
+            with pytest.raises(D.InflateError):
+                D.decompress(raw, size, device=cuda_device,
+                             force_device=True)
+        else:
+            assert D.decompress(raw, size, device=cuda_device,
+                                force_device=True, stats=st) == data, name
+            assert st["device_path"] == "speculative", name

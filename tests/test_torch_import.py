@@ -18,6 +18,9 @@ MODULES = ("deflate_tpu_torch", "deflate_tpu_torch._build",
            "deflate_tpu_torch.ops.wave_route",
            "deflate_tpu_torch.ops.wave_fill",
            "deflate_tpu_torch.ops.block_inflate",
+           "deflate_tpu_torch.ops.inflate_scan",
+           "deflate_tpu_torch.ops.header_decode",
+           "deflate_tpu_torch.models.decoder",
            "deflate_tpu_torch.models.encoder",
            "deflate_tpu_torch.models.wave_decoder",
            "deflate_tpu_torch.models.host_inflate",

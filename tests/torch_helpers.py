@@ -474,3 +474,38 @@ def long_code_case(rng, B: int, W64: int):
     words = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
     hints = rng.integers(0, 64, (B, W64)).astype(np.int32)
     return words, hints, md_rows([(lit, dist)] * B)
+
+
+def pack_fields(fields) -> bytes:
+    """(value, nbits) fields, LSB first, as bytes."""
+    acc = n = 0
+    for v, k in fields:
+        acc |= (v & ((1 << k) - 1)) << n
+        n += k
+    return acc.to_bytes((n + 7) // 8, "little")
+
+
+def dynamic_header(hlit: int, hdist: int, cl_lens: dict, ops) -> bytes:
+    """A final dynamic block's header (HLIT field hlit - 257, ...), a CL
+    code of cl_lens {symbol: length} and CL ops [(symbol, extra)]."""
+    lens = np.zeros(19, np.int64)
+    for sym, ln in cl_lens.items():
+        lens[sym] = ln
+    order = list(T.CL_ORDER)
+    hclen = max(4, max(order.index(s) for s in cl_lens) + 1)
+    code, nxt = {}, 0
+    for ln in range(1, 8):                       # canonical codes
+        for sym in range(19):
+            if lens[sym] == ln:
+                code[sym] = int(format(nxt, f"0{ln}b")[::-1], 2)
+                nxt += 1
+        nxt <<= 1
+    extra = {16: 2, 17: 3, 18: 7}
+    fields = [(1, 1), (2, 2), (hlit - 257, 5), (hdist - 1, 5),
+              (hclen - 4, 4)]
+    fields += [(int(lens[order[i]]), 3) for i in range(hclen)]
+    for sym, ev in ops:
+        fields.append((code[sym], int(lens[sym])))
+        if sym in extra:
+            fields.append((ev, extra[sym]))
+    return pack_fields(fields)

@@ -2,13 +2,15 @@
 
     python3 tools/chip_phases.py
 
-Runs chip_smoke.py's 8 MiB corpus through seven paths twice — encode,
+Runs chip_smoke.py's 8 MiB corpus through eight paths twice — encode,
 hinted decode, foreign-stream decode (python zlib level 6, forced onto
 the card), hintless decode, level-3 encode with the default (merge)
 emission and with pack="kernel" (packet fusion, K3 compaction, K7
-placement), and the hinted decode of the level-3 stream by the split
+placement), the hinted decode of the level-3 stream by the split
 stage A (DT_STAGEAB_PALLAS=0: K8, then the mark automaton and
-compaction in torch) — with timers around each phase (each
+compaction in torch), and the level-2 stream through the speculative
+decoder (models/decoder.inflate_device, torch array code, no kernel) —
+with timers around each phase (each
 timer synchronises the card before and after, so phases do not
 overlap), prints each path's breakdown from the second repetition,
 then runs each path once more under torch.profiler without the timers
@@ -33,11 +35,15 @@ sys.path.insert(0, ROOT)
 
 import deflate_tpu_torch as D  # noqa: E402
 from chip_smoke import make_corpus  # noqa: E402
+from deflate_tpu_torch import native  # noqa: E402
+from deflate_tpu_torch.models import decoder as DEC  # noqa: E402
 from deflate_tpu_torch.models import encoder as E  # noqa: E402
 from deflate_tpu_torch.models import wave_decoder as WD  # noqa: E402
 from deflate_tpu_torch.ops import bitmerge as BM  # noqa: E402
 from deflate_tpu_torch.ops import block_inflate as BI  # noqa: E402
+from deflate_tpu_torch.ops import header_decode as HD  # noqa: E402
 from deflate_tpu_torch.ops import huffman as H  # noqa: E402
+from deflate_tpu_torch.ops import inflate_scan as IS  # noqa: E402
 from deflate_tpu_torch.ops import lz77 as LZ  # noqa: E402
 from deflate_tpu_torch.ops import pack as PK  # noqa: E402
 from deflate_tpu_torch.ops import wave as W  # noqa: E402
@@ -52,7 +58,8 @@ PHASES = [(E, "_encode"), (LZ, "find_matches"), (LZ, "greedy_parse"),
           (E, "_emit_fields"), (E, "_packets_of"), (E, "_route_packets"),
           (E, "_packet_post"), (PK, "pack_blocks"), (E, "_finish_block"),
           (BM, "merge_words"), (E, "block_hints"),
-          (W, "parse_headers_host"), (W, "prepare_windows"),
+          (W, "parse_headers_host"), (native, "parse_headers"),
+          (W, "_canon_meta_batch"), (W, "prepare_windows"),
           (WD, "wave_decode_filled"), (W, "wave_decode"),
           (WS, "decode_mark"), (WS, "decode_mark_split"),
           (WS, "decode_positions"), (W, "chunk_automaton"),
@@ -60,7 +67,10 @@ PHASES = [(E, "_encode"), (LZ, "find_matches"), (LZ, "greedy_parse"),
           (W, "merge_match_runs"), (WF, "pack_fill_recs"),
           (WF, "fill_matches"), (WD, "skeleton_plan"),
           (WD, "_wave_group"), (WF, "fill_matches_hist"),
-          (BI, "prepare_blocks"), (BI, "inflate_blocks_op")]
+          (BI, "prepare_blocks"), (BI, "inflate_blocks_op"),
+          (DEC, "decode_stream"), (DEC, "decode_block"),
+          (HD, "parse_dynamic_header"), (IS, "build_lut"),
+          (IS, "token_scan"), (IS, "find_chain"), (DEC, "_resolve")]
 
 
 def main() -> int:
@@ -134,6 +144,8 @@ def main() -> int:
         "L3 encode": encode_l3,
         "L3 kernel-pack encode": encode_l3_kernel,
         "L3 split stage-A decode": split_decode,
+        "speculative decode": lambda: DEC.inflate_device(
+            state["s"], len(data), device=dev),
     }
 
     for mod, name in PHASES:
