@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from deflate_tpu_torch/csrc/ (one nvcc per
-source, all at once) and the native host walk (g++), then drives six
-paths on an 8 MiB mixed corpus (256 blocks of 32 KiB), each with every
-kernel count set to 0 just before it and read just after:
+source, all at once) and the native host library (g++), then drives
+seven paths on an 8 MiB mixed corpus (256 blocks of 32 KiB), each with
+every kernel count set to 0 just before it and read just after:
 
   A  level-2 ``compress_with_manifest``, then hinted ``decode_all`` on
      the card (K1-K4);
@@ -29,7 +29,17 @@ kernel count set to 0 just before it and read just after:
      block, corrupt streams (InflateError after both capacity
      configurations flag them, the only calls of the host decoder) and
      wrong out_size values — then phase A's stream through
-     ``decoder.inflate_device`` (256 blocks, max_blocks 512).
+     ``decoder.inflate_device`` (256 blocks, max_blocks 512);
+  G  the public encode entry points (K1): ``compress(data, 2)``, in
+     segments of 64 blocks stitched on the host, must equal phase A's
+     stream; ``compress(stats=...)`` (a second, size-only planning pass,
+     K1 again); ``compress_many`` of the corpus's quarters must equal
+     ``compress`` of each; ``compress_file`` at its default chunk_blocks
+     must equal ``compress``; ``compress_zlib`` and ``compress_gzip``
+     must round-trip through python zlib and gzip; ``decompress_gzip``
+     of a two-member python gzip file; ``decompress_file`` (host) of a
+     1 MiB prefix's stream; ``decode_range`` on three ranges of phase
+     A's manifest; ``backend="native"`` and ``"auto"`` on 10,000 bytes.
 
 Phases A, B and E parse block headers with the native walk
 (``ops/wave.parse_headers_host``); on phase A's and B's offsets it is
@@ -47,8 +57,8 @@ alone (kernel_only_ms), K2's its ns per chain step and K8's its ns per
 position; K2 (on every call of phases A and B), K4, K5 (on every row),
 K7 and K8 (on every position) are also held against the torch forms of
 their designs (K4's rows must hold records in order without overlap,
-K7's offsets must not decrease), and K1 on every call of phases A and D
-against its plain version and the torch form of its design; K6's result
+K7's offsets must not decrease), and K1 on every call of phases A, D
+and G against its plain version and the torch form of its design; K6's result
 adds its time on each corpus quarter's 64 blocks alone (quarter_ms).
 
 Prints the card (nvidia-smi name and power limit), MB/s of every phase,
@@ -60,10 +70,12 @@ result, without a CUDA device or when any phase fails.
 from __future__ import annotations
 
 import contextlib
+import gzip
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -550,6 +562,84 @@ def main() -> int:
 
     run_phase([], phase_f)
 
+    # ---- phase G: the public encode entry points (K1) ------------------
+    # compress in segments of 64 blocks, stitched on the host, must give
+    # phase A's one-batch stream; stats plans every block a second time
+    require(D.compress(data, 2, device=dev) == stream, "warm-up compress")
+    g_stream, t_g, lg, cg = run_phase(
+        ["K1"], lambda: D.compress(data, 2, device=dev))
+    require(g_stream == stream, "compress differs from phase A's stream")
+    st_g = {}
+    _, _, lg_stats, cg_stats = run_phase(
+        ["K1"], lambda: D.compress(data, 2, stats=st_g, device=dev))
+    # the report's histogram against the BTYPE bits of phase A's stream
+    # at its manifest's block offsets
+    btypes = {"stored": 0, "fixed": 0, "dynamic": 0}
+    for bit_off, _, _ in man.blocks:
+        bt = sum(((stream[(bit_off + 1 + i) >> 3] >> ((bit_off + 1 + i) & 7))
+                  & 1) << i for i in range(2))
+        btypes[("stored", "fixed", "dynamic")[bt]] += 1
+    require(st_g["block_types"] == btypes
+            and st_g["backend"] == "device"
+            and st_g["bytes_out"] == len(stream),
+            f"G stats {st_g}, stream's block types {btypes}")
+    quarters = [data[i * len(data) // 4:(i + 1) * len(data) // 4]
+                for i in range(4)]
+    want_q = [D.compress(q, 2, device=dev) for q in quarters]
+    many, t_many, lg_many, cg_many = run_phase(
+        ["K1"], lambda: D.compress_many(quarters, 2, device=dev))
+    require(many == want_q, "compress_many differs from compress per quarter")
+    z = D.compress_zlib(data, 2, device=dev)
+    g = D.compress_gzip(data, 2, device=dev)
+    require(zlib.decompress(z) == data and gzip.decompress(g) == data,
+            "python zlib or gzip rejects the container")
+    half = len(data) // 2
+    two = gzip.compress(data[:half], 6) + gzip.compress(data[half:], 1)
+    require(D.decompress_gzip(two) == data, "two-member gzip decode")
+    require(D.decompress_gzip(g) == data, "own gzip decode")
+    prefix = data[:1 << 20]
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.bin"), os.path.join(tmp, "out.z")
+        with open(src, "wb") as f:
+            f.write(data)
+        _, t_file, lg_file, cg_file = run_phase(
+            ["K1"], lambda: D.compress_file(src, dst, 2, device=dev))
+        with open(dst, "rb") as f:
+            require(f.read() == stream, "compress_file differs from compress")
+        with open(src, "wb") as f:
+            f.write(D.compress(prefix, 2, device=dev))
+        t0 = time.perf_counter()
+        D.decompress_file(src, dst)
+        t_dfile = time.perf_counter() - t0
+        with open(dst, "rb") as f:
+            require(f.read() == prefix, "decompress_file of the prefix")
+    ranges = [(0, 100), (32760, 32800), (len(data) - 5000, len(data) + 10)]
+    for a, b in ranges:
+        require(M.decode_range(stream, man, a, b) == data[a:b],
+                f"decode_range({a}, {b})")
+    small = data[3 << 20:(3 << 20) + 10000]
+    for backend in ("native", "auto"):
+        st_n = {}
+        out = D.compress(small, 2, backend, stats=st_n, device=dev)
+        require(zlib.decompress(out, -15) == small
+                and st_n["backend"] == "native", f"G backend {backend}")
+    launches_g = {"compress": lg["K1"], "stats": lg_stats["K1"],
+                  "compress_many": lg_many["K1"],
+                  "compress_file": lg_file["K1"]}
+    k1_g = [c for cc in (cg, cg_stats, cg_many, cg_file) for c in cc["K1"]]
+    say(f"G compress: {len(data)} bytes -> {len(g_stream)} bytes, "
+        f"identical to phase A's stream, in {t_g:.3f} s = "
+        f"{mb / t_g:.2f} MB/s; stats {st_g['block_types']}")
+    say(f"G compress_many of 4 quarters: {t_many:.3f} s = "
+        f"{mb / t_many:.2f} MB/s; compress_file (chunk_blocks 256): "
+        f"{t_file:.3f} s = {mb / t_file:.2f} MB/s; K1 launches "
+        f"{launches_g}")
+    say(f"G containers round-trip through python zlib and gzip; "
+        f"two-member gzip decoded; decompress_file of a "
+        f"{len(prefix)}-byte prefix in {t_dfile:.3f} s (host); "
+        f"decode_range on {ranges}; native and auto backends on "
+        f"{len(small)} bytes")
+
     # ---- each kernel against its plain version, phase operands ---------
     def timed(fn, reps: int = KERNEL_REPS) -> float:
         return cuda_ms(torch, fn, reps)
@@ -621,11 +711,12 @@ def main() -> int:
                            if library else None),
             "card": card})
 
-    # every K1 call of phases A and D against the plain version and the
-    # torch form of the design, depths_jump
-    k1_all = calls["K1"] + k1_d
+    # every K1 call of phases A, D and G against the plain version and
+    # the torch form of the design, depths_jump
+    k1_all = calls["K1"] + k1_d + k1_g
     k1_more = max(max(max_abs_err(torch, tree.depths_kernel(*c),
-                                  tree.depths_plain(*c)) for c in k1_d),
+                                  tree.depths_plain(*c))
+                      for c in k1_d + k1_g),
                   max(max_abs_err(torch, tree.depths_kernel(*c),
                                   tree.depths_jump(*c)) for c in k1_all))
     k1_steps = sum(int((c[1].to(torch.int64) - 1).clamp(min=0).sum())
@@ -639,8 +730,8 @@ def main() -> int:
         return timed(lambda: tree.depths_launch(*c, out))
 
     check(f"K1 tree (litlen, dist, CL tree batches of phase A, "
-          f"{k1_steps} merge steps; all {len(k1_all)} calls of phases A "
-          f"and D also compared with depths_plain and depths_jump; "
+          f"{k1_steps} merge steps; all {len(k1_all)} calls of phases A, "
+          f"D and G also compared with depths_plain and depths_jump; "
           f"kernel_only_ms: dt_tree_depths alone into a preallocated "
           f"output)", "K1",
           "deflate_tpu_torch/csrc/tree.cu",
@@ -652,9 +743,11 @@ def main() -> int:
                                         for c in calls["K1"])
     results[-1]["merge_steps"] = k1_steps
     results[-1]["launches_d"] = [ld_merge["K1"], ld["K1"]]
+    results[-1]["launches_g"] = launches_g
     log(f"K1: wrapper {results[-1]['ms']:.4f} ms, dt_tree_depths alone "
         f"{results[-1]['kernel_only_ms']:.4f} ms over {k1_steps} merge "
-        f"steps; {len(k1_all)} calls of phases A and D compared [{card}]")
+        f"steps; {len(k1_all)} calls of phases A, D and G compared "
+        f"[{card}]")
 
     def k2_kernel_only_ms(c) -> float:
         """dt_decode_mark alone (its table build and decode, no

@@ -693,3 +693,51 @@ def encode_batch_with_hints(blocks, blens, live, final_idx: int,
     hints int32 [B, 4224]."""
     return _encode(blocks, blens, live, final_idx, level, phase0, True,
                    pack)
+
+
+def plan_sizes(blocks, blens, live, level: int):
+    """Size-only planning (no emission) at stream phase 0: stage A, then
+    choose_blocks' (choice, pad, offset, bits) [B].  Used by
+    compress(stats=...) and the tests."""
+    plans = batch_plan(blocks, blens, level)
+    return choose_blocks(plans["fixed_bits"], plans["dyn_bits"], blens, live,
+                         level)
+
+
+def encode_blocks_multi(blocks, blens, live, finals, owner, level: int):
+    """Encode blocks of MANY independent streams in one batch.
+
+    finals: bool [B], the block carries BFINAL (last block of its
+    stream); owner: int32 [B], stream id per block (a stream's blocks
+    contiguous).  Each stream starts at bit phase 0: choose_blocks'
+    doubling composes the blocks' phase maps as a segmented scan that
+    restarts at every change of owner.  Every block's words come back
+    standalone (scatter emission) for the host to stitch per stream.
+    Returns (words int32 [B, WB], bits int32 [B])."""
+    B = blocks.shape[0]
+    dev = blocks.device
+    plans = batch_plan(blocks, blens, level)
+    fb, db = plans["fixed_bits"], plans["dyn_bits"]
+    ph = torch.arange(8, dtype=I32, device=dev)[None, :]
+    start = owner != torch.cat([torch.full((1,), -1, dtype=owner.dtype,
+                                           device=dev), owner[:-1]])
+    _, _, bits8 = _choose_one(ph, fb[:, None], db[:, None], blens[:, None],
+                              live[:, None], level)
+    # a stream's first block enters at phase 0 whatever came before
+    M = torch.where(start[:, None], bits8[:, :1], bits8)
+    S = start
+    d = 1
+    while d < B:
+        Lm = torch.cat([torch.zeros((min(d, B), 8), dtype=I32, device=dev),
+                        M[:-d]])
+        Ls = torch.cat([torch.zeros(min(d, B), dtype=torch.bool,
+                                    device=dev), S[:-d]])
+        comp = Lm + torch.gather(M, 1, ((ph + Lm) & 7).to(I64))
+        M = torch.where(S[:, None], M, comp)
+        S = S | Ls
+        d *= 2
+    excl = torch.cat([torch.zeros((1, 8), dtype=I32, device=dev), M[:-1]])
+    offset = torch.where(start, 0, excl[:, 0])
+    choice, pad, bits = _choose_one(offset, fb, db, blens, live, level)
+    words = emit_block(blocks, blens, plans, choice, pad, finals)
+    return torch.where(live[:, None], words, 0), bits

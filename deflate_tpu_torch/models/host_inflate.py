@@ -9,9 +9,9 @@ always-available, dependency-free correctness anchor and the per-block
 fallback of runtime/manifest.decode_all.
 
 Copied from deflate_tpu/models/host_inflate.py, which imports no JAX:
-the raw-stream decoder, the zlib container and Adler-32; the streaming
-block entry point and the consumed-bytes decode (for gzip members) come
-with the rest of the public API.
+the raw-stream decoder, the consumed-bytes decode (gzip members), the
+streaming block decode (decompress_file), the zlib container and
+Adler-32.
 """
 from __future__ import annotations
 
@@ -131,6 +131,17 @@ def _read_dynamic_tables(br: _BitReader):
     return _Canon(lens[:hlit]), _Canon(lens[hlit:])
 
 
+def inflate_raw_consumed(data: bytes, max_out: int | None = None):
+    """Decode one raw DEFLATE stream; return (bytes, input bytes consumed).
+
+    A partially-read final byte counts as consumed — the returned offset is
+    where a container trailer or the next concatenated member begins.
+    """
+    br = _BitReader(data)
+    out = _inflate_loop(br, max_out, single_block=False)
+    return out, (br.pos + 7) >> 3
+
+
 def inflate_raw(data: bytes, max_out: int | None = None,
                 start_bit: int = 0, single_block: bool = False,
                 history: bytes = b"") -> bytes:
@@ -146,6 +157,19 @@ def inflate_raw(data: bytes, max_out: int | None = None,
     br = _BitReader(data)
     br.pos = start_bit
     return _inflate_loop(br, max_out, single_block, history)
+
+
+def inflate_block_streaming(data: bytes, start_bit: int,
+                            history: bytes = b""):
+    """Decode ONE block starting at ``start_bit``; returns
+    (new_bytes, end_bit, bfinal) — the resume triple for bounded-memory
+    file decode (the working analog of the reference's broken chunked
+    file path, inflate.hpp:390-408, B5)."""
+    br = _BitReader(data)
+    br.pos = start_bit
+    bfinal = (data[start_bit >> 3] >> (start_bit & 7)) & 1
+    out = _inflate_loop(br, None, True, history)
+    return out, br.pos, bool(bfinal)
 
 
 def _inflate_loop(br: _BitReader, max_out: int | None,
@@ -201,7 +225,6 @@ def _inflate_loop(br: _BitReader, max_out: int | None,
             raise InflateError("invalid block type 3")
         if bfinal or single_block:
             return bytes(out[nhist:])
-
 
 
 def adler32(data: bytes) -> int:

@@ -1,16 +1,24 @@
-"""ctypes bindings of the native host walk (native/inflate.cpp).
+"""ctypes bindings of the native host library (native/inflate.cpp and
+native/deflate.cpp).
 
-The source is a copy of deflate_tpu/native/inflate.cpp.  At first use it
-is compiled with ``g++ -O2 -shared -fPIC`` into the gitignored
-``deflate_tpu_torch/_build/``, named by a hash of the source and flags
-so an edited source rebuilds.  A failed build raises: there is no
+Both sources are copies of deflate_tpu/native/'s.  At first use they are
+compiled together, as that package's Makefile does, with ``g++ -O2
+-shared -fPIC`` into one library in the gitignored
+``deflate_tpu_torch/_build/``, named by a hash of both sources and the
+flags so an edited source rebuilds.  A failed build raises: there is no
 pure-Python stand-in behind these functions.
 
   skeleton(data)            virtual-block plan of a raw DEFLATE stream
                             (the foreign-stream device decode's walk)
   inflate(data, cap)        host decode of a raw stream
+  inflate_consumed(data, cap)  the same, plus the input bytes consumed
+                            (gzip members)
   parse_headers(data, offs) batched block-header walk (the wavefront
                             decoder's host prep, ops/wave.py)
+  deflate(data, level)      host encode (compress(backend="native"))
+  stitch(segments)          bit-level concatenation of encoded segments
+  adler32(data)             the zlib container's checksum
+  rfc_tables(which)         the RFC 1951 tables as each source holds them
 """
 from __future__ import annotations
 
@@ -23,7 +31,7 @@ import threading
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SRC = os.path.join(_HERE, "inflate.cpp")
+SRCS = [os.path.join(_HERE, f) for f in ("inflate.cpp", "deflate.cpp")]
 BUILD = os.path.join(os.path.dirname(_HERE), "_build")
 CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 HINT_STRIDE = 4224            # hint bytes per virtual block: the largest
@@ -43,22 +51,25 @@ _lib = None
 
 
 def _target() -> str:
-    with open(SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode())
-    return os.path.join(BUILD, f"libinflate_{digest.hexdigest()[:12]}.so")
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for src in SRCS:
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD, f"libdeflate_{digest.hexdigest()[:12]}.so")
 
 
 def build() -> str:
-    """Compile inflate.cpp unless a current library exists; returns its
-    path.  Raises on failure."""
+    """Compile inflate.cpp and deflate.cpp into one library unless a
+    current one exists; returns its path.  Raises on failure."""
     so = _target()
     if not os.path.exists(so):
         os.makedirs(BUILD, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
         r = subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS,
-                            "-o", tmp, SRC], capture_output=True, text=True)
+                            "-o", tmp, *SRCS], capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(f"g++ inflate.cpp failed:\n{r.stderr}")
+            raise RuntimeError(f"g++ of the native library failed:\n"
+                               f"{r.stderr}")
         os.replace(tmp, so)
     return so
 
@@ -84,6 +95,22 @@ def lib() -> ctypes.CDLL:
             L.dt_parse_headers.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
                                            i64p, ctypes.c_int64, i64p, i64p,
                                            i64p, u8p, i32p, i32p, u8p]
+            L.dt_inflate2.restype = ctypes.c_int
+            L.dt_inflate2.argtypes = [ctypes.c_char_p, ctypes.c_size_t, u8p,
+                                      ctypes.c_size_t, szp, szp]
+            L.dt_deflate.restype = ctypes.c_int
+            L.dt_deflate.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                     ctypes.c_int, u8p, ctypes.c_size_t, szp]
+            L.dt_adler32.restype = ctypes.c_uint32
+            L.dt_adler32.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
+            for name in ("dt_rfc_tables_inflate", "dt_rfc_tables_deflate"):
+                f = getattr(L, name)
+                f.restype = None
+                f.argtypes = [i32p] * 5
+            u32p = ctypes.POINTER(ctypes.c_uint32)
+            u64p = ctypes.POINTER(ctypes.c_uint64)
+            L.dt_stitch.restype = None
+            L.dt_stitch.argtypes = [u32p, u64p, u64p, ctypes.c_size_t, u32p]
             _lib = L
         return _lib
 
@@ -108,6 +135,81 @@ def inflate(data: bytes, out_cap: int, exact: bool = False) -> bytes:
             out_cap = min(out_cap * 4, limit)
             continue
         raise ValueError(f"inflate: {DT_ERRORS.get(rc, rc)}")
+
+
+def inflate_consumed(data: bytes, out_cap: int):
+    """Native inflate returning (bytes, input bytes consumed), for
+    container parsers (multi-member gzip) that must find the trailer or
+    the next member after the DEFLATE payload.  Grows out_cap as a hint,
+    as inflate does; raises ValueError on a malformed stream."""
+    L = lib()
+    limit = min(1 << 30, max(out_cap, 1040 * max(1, len(data)) + 64))
+    while True:
+        out = (ctypes.c_uint8 * out_cap)()
+        out_len = ctypes.c_size_t(0)
+        consumed = ctypes.c_size_t(0)
+        rc = L.dt_inflate2(data, len(data), out, out_cap,
+                           ctypes.byref(out_len), ctypes.byref(consumed))
+        if rc == DT_OK:
+            return bytes(bytearray(out)[:out_len.value]), consumed.value
+        if rc == -2 and out_cap < limit:
+            out_cap = min(out_cap * 4, limit)
+            continue
+        raise ValueError(f"inflate: {DT_ERRORS.get(rc, rc)}")
+
+
+def deflate(data: bytes, level: int) -> bytes:
+    """Native deflate (dt_deflate in deflate.cpp) of data at level 0-3 to
+    a raw DEFLATE stream."""
+    L = lib()
+    out_cap = max(1024, len(data) + len(data) // 2 + 4096)
+    out = (ctypes.c_uint8 * out_cap)()
+    out_len = ctypes.c_size_t(0)
+    rc = L.dt_deflate(data, len(data), level, out, out_cap,
+                      ctypes.byref(out_len))
+    if rc != DT_OK:
+        raise ValueError(f"deflate: {DT_ERRORS.get(rc, rc)}")
+    return bytes(bytearray(out)[:out_len.value])
+
+
+def adler32(data: bytes) -> int:
+    return int(lib().dt_adler32(data, len(data)))
+
+
+def rfc_tables(which: str) -> dict:
+    """The RFC 1951 constant tables as compiled into one source, which:
+    "inflate" or "deflate": int32 arrays len_base, len_extra, dist_base,
+    dist_extra, cl_order, for tests that hold the copies of these
+    constants (utils/tables.py, inflate.cpp, deflate.cpp) against each
+    other."""
+    fn = getattr(lib(), f"dt_rfc_tables_{which}")
+    tabs = {"len_base": 29, "len_extra": 29, "dist_base": 30,
+            "dist_extra": 30, "cl_order": 19}
+    out = {k: np.zeros(n, np.int32) for k, n in tabs.items()}
+    fn(*(a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+         for a in out.values()))
+    return out
+
+
+def stitch(segments) -> tuple[np.ndarray, int]:
+    """Bit-level concatenation of [(uint32 words, nbits), ...] (dt_stitch
+    in inflate.cpp): returns (uint32 words [total // 32 + 2], total
+    bits).  Bits past nbits in a segment's last word must be zero."""
+    L = lib()
+    total = sum(int(nb) for _, nb in segments)
+    segs = [np.ascontiguousarray(w[:(int(nb) + 31) // 32], np.uint32)
+            for w, nb in segments]
+    cat = np.concatenate(segs) if segs else np.zeros(0, np.uint32)
+    offsets = np.zeros(len(segs), np.uint64)
+    offsets[1:] = np.cumsum([len(w) for w in segs[:-1]])
+    bits = np.asarray([int(nb) for _, nb in segments], np.uint64)
+    out = np.zeros(total // 32 + 2, np.uint32)
+    p = ctypes.POINTER
+    L.dt_stitch(cat.ctypes.data_as(p(ctypes.c_uint32)),
+                offsets.ctypes.data_as(p(ctypes.c_uint64)),
+                bits.ctypes.data_as(p(ctypes.c_uint64)), len(segs),
+                out.ctypes.data_as(p(ctypes.c_uint32)))
+    return out, total
 
 
 def parse_headers(data: bytes, bit_offsets):

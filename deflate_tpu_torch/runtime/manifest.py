@@ -12,6 +12,7 @@ block independently.
 
   compress_with_manifest(data, level=2, device=dev) -> (stream, Manifest)
   decode_all(stream, man, device=dev) -> bytes
+  decode_range(stream, man, start, end) -> bytes   (host)
 
 ``device`` is a torch device and defaults to the card ("cuda"); without
 one these raise.  device="cpu" runs the same torch path with the plain
@@ -204,13 +205,11 @@ def split_blocks(data):
     padded, blens int32 [n]), numpy; one empty block for empty input."""
     buf = _as_u8(data)
     nblocks = max(1, -(-len(buf) // BLOCK_SIZE))
-    blocks = np.zeros((nblocks, BLOCK_SIZE), np.uint8)
-    blens = np.zeros((nblocks,), np.int32)
-    for i in range(nblocks):
-        chunk = buf[i * BLOCK_SIZE:(i + 1) * BLOCK_SIZE]
-        blocks[i, :len(chunk)] = chunk
-        blens[i] = len(chunk)
-    return blocks, blens
+    padded = np.zeros(nblocks * BLOCK_SIZE, np.uint8)
+    padded[:len(buf)] = buf
+    blens = np.clip(len(buf) - BLOCK_SIZE * np.arange(nblocks), 0,
+                    BLOCK_SIZE).astype(np.int32)
+    return padded.reshape(nblocks, BLOCK_SIZE), blens
 
 
 def manifest_of(words, total, offset, bits, harr, blens):
@@ -297,3 +296,23 @@ def decode_all(stream: bytes, man: Manifest, device="cuda") -> bytes:
     for bit_off, _, _ in man.blocks:
         out += HI.inflate_raw(stream, start_bit=bit_off, single_block=True)
     return bytes(out)
+
+
+def decode_range(stream: bytes, man: Manifest, start: int, end: int) -> bytes:
+    """Random-access decode of output bytes [start, end) on the host,
+    without touching the rest of the stream — possible because blocks are
+    independent (Q5)."""
+    from deflate_tpu_torch.models import host_inflate as HI
+
+    end = min(end, man.out_size)
+    if start >= end:
+        return b""
+    idxs = man.blocks_for_range(start, end)
+    out = bytearray()
+    base = sum(b[2] for b in man.blocks[:idxs[0]])
+    for i in idxs:
+        bit_off, _, _ = man.blocks[i]
+        # decode exactly one block at its original bit phase — the stored-
+        # block byte-align padding depends on the absolute stream phase
+        out += HI.inflate_raw(stream, start_bit=bit_off, single_block=True)
+    return bytes(out[start - base:end - base])

@@ -187,6 +187,22 @@ def test_main_path_on_card_equals_cpu(cuda_device):
     assert M.decode_all(s_gpu, m_gpu, device=cuda_device) == data
 
 
+def test_compress_entry_points_on_card_equal_cpu(cuda_device, tmp_path):
+    """compress (segments 64 | 1), compress_many and compress_file on the
+    card give the CPU's bytes."""
+    data = corpus(65, seed=34)[:64 * 32768 + 5000]
+    want = D.compress(data, 2, device="cpu")
+    assert D.compress(data, 2, device=cuda_device) == want
+    bufs = [data[:70000], b"", data[70000:70001], data[-40000:]]
+    assert D.compress_many(bufs, 2, device=cuda_device) \
+        == D.compress_many(bufs, 2, device="cpu")
+    src, dst = tmp_path / "in.bin", tmp_path / "out.deflate"
+    src.write_bytes(data)
+    D.compress_file(str(src), str(dst), level=2, device=cuda_device)
+    assert dst.read_bytes() == want
+    assert zlib.decompress(want, -15) == data
+
+
 def test_k5_kernel_matches_plain(cuda_device):
     lit, rec0, rec1, nmatch, sizes = hist_case()
     recs = np.stack([rec0, rec1], 2).reshape(len(sizes), 2 * NM)

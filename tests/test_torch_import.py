@@ -10,6 +10,7 @@ from torch_helpers import ROOT
 MODULES = ("deflate_tpu_torch", "deflate_tpu_torch._build",
            "deflate_tpu_torch.native",
            "deflate_tpu_torch.utils.bits", "deflate_tpu_torch.utils.tables",
+           "deflate_tpu_torch.utils.config", "deflate_tpu_torch.utils.metrics",
            "deflate_tpu_torch.ops.huffman", "deflate_tpu_torch.ops.tree",
            "deflate_tpu_torch.ops.header", "deflate_tpu_torch.ops.lz77",
            "deflate_tpu_torch.ops.bitmerge", "deflate_tpu_torch.ops.bitpack",

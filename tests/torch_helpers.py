@@ -36,6 +36,30 @@ def corpus(nblocks: int, seed: int = 42) -> bytes:
     return make_corpus(np.random.default_rng(seed), nblocks * BLOCK)
 
 
+def nine_blocks() -> bytes:
+    """294,412 bytes, 9 blocks: six blocks of word text (words from
+    default_rng(12)), then random bytes from the same generator, which
+    the encoder stores (3 stored, 6 dynamic blocks at level 2)."""
+    from chip_smoke import word_text
+
+    rng = np.random.default_rng(12)
+    return word_text(rng, 6 * BLOCK) + bytes(
+        rng.integers(0, 256, 294412 - 6 * BLOCK, dtype=np.uint8))
+
+
+def past_64_blocks() -> bytes:
+    """65 blocks, 2,099,152 bytes: 64 blocks of word text (words from
+    default_rng(64)) and a last block of 2,000 random bytes, which the
+    encoder stores.  At level 1 the first 64 blocks end at bit phase 4,
+    so the stored block's byte-align padding depends on the phase
+    carried across compress's 64 | 1 segment boundary."""
+    from chip_smoke import word_text
+
+    rng = np.random.default_rng(64)
+    return word_text(rng, 64 * BLOCK) + bytes(
+        rng.integers(0, 256, 2000, dtype=np.uint8))
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; skips the test without one."""

@@ -2,15 +2,18 @@
 
     python3 tools/chip_phases.py
 
-Runs chip_smoke.py's 8 MiB corpus through eight paths twice — encode,
+Runs chip_smoke.py's 8 MiB corpus through nine paths twice — encode,
 hinted decode, foreign-stream decode (python zlib level 6, forced onto
 the card), hintless decode, level-3 encode with the default (merge)
 emission and with pack="kernel" (packet fusion, K3 compaction, K7
 placement), the hinted decode of the level-3 stream by the split
 stage A (DT_STAGEAB_PALLAS=0: K8, then the mark automaton and
 compaction in torch), and the level-2 stream through the speculative
-decoder (models/decoder.inflate_device, torch array code, no kernel) —
-with timers around each phase (each
+decoder (models/decoder.inflate_device, torch array code, no kernel),
+and the public ``compress(data, 2, stats=...)`` (segment encodes of 64
+blocks, ``stitch_segments`` on the host, then ``plan_sizes``, the
+report's second planning pass over all blocks) — with timers around
+each phase (each
 timer synchronises the card before and after, so phases do not
 overlap), prints each path's breakdown from the second repetition,
 then runs each path once more under torch.profiler without the timers
@@ -51,6 +54,7 @@ from deflate_tpu_torch.ops import wave_fill as WF  # noqa: E402
 from deflate_tpu_torch.ops import wave_route as WR  # noqa: E402
 from deflate_tpu_torch.ops import wave_stagea as WS  # noqa: E402
 from deflate_tpu_torch.runtime import manifest as M  # noqa: E402
+from deflate_tpu_torch.runtime import stitch as S  # noqa: E402
 
 PHASES = [(E, "_encode"), (LZ, "find_matches"), (LZ, "greedy_parse"),
           (H, "huffman_lengths_batch"), (E, "choose_blocks"),
@@ -70,7 +74,9 @@ PHASES = [(E, "_encode"), (LZ, "find_matches"), (LZ, "greedy_parse"),
           (BI, "prepare_blocks"), (BI, "inflate_blocks_op"),
           (DEC, "decode_stream"), (DEC, "decode_block"),
           (HD, "parse_dynamic_header"), (IS, "build_lut"),
-          (IS, "token_scan"), (IS, "find_chain"), (DEC, "_resolve")]
+          (IS, "token_scan"), (IS, "find_chain"), (DEC, "_resolve"),
+          (D, "_encode_segments"), (E, "encode_batch"),
+          (S, "stitch_segments"), (E, "plan_sizes")]
 
 
 def main() -> int:
@@ -135,6 +141,12 @@ def main() -> int:
         finally:
             del os.environ["DT_STAGEAB_PALLAS"]
 
+    def compress_stats():
+        st = {}
+        if D.compress(data, 2, stats=st, device=dev) != state["s"]:
+            raise RuntimeError("compress differs from the manifest encode")
+        return None
+
     paths = {
         "encode": encode,
         "decode": lambda: M.decode_all(state["s"], state["m"], device=dev),
@@ -146,6 +158,7 @@ def main() -> int:
         "L3 split stage-A decode": split_decode,
         "speculative decode": lambda: DEC.inflate_device(
             state["s"], len(data), device=dev),
+        "compress, stats": compress_stats,
     }
 
     for mod, name in PHASES:
