@@ -4,7 +4,7 @@
 
 Builds the CUDA kernels from deflate_tpu_torch/csrc/ (one nvcc per
 source, all at once) and the native host library (g++), then drives
-seven paths on an 8 MiB mixed corpus (256 blocks of 32 KiB), each with
+eight paths on an 8 MiB mixed corpus (256 blocks of 32 KiB), each with
 every kernel count set to 0 just before it and read just after:
 
   A  level-2 ``compress_with_manifest``, then hinted ``decode_all`` on
@@ -39,7 +39,16 @@ every kernel count set to 0 just before it and read just after:
      must round-trip through python zlib and gzip; ``decompress_gzip``
      of a two-member python gzip file; ``decompress_file`` (host) of a
      1 MiB prefix's stream; ``decode_range`` on three ranges of phase
-     A's manifest; ``backend="native"`` and ``"auto"`` on 10,000 bytes.
+     A's manifest; ``backend="native"`` and ``"auto"`` on 10,000 bytes;
+  H  data parallelism (parallel/mesh.py) on a world of one over NCCL,
+     started by ``make_mesh`` through a FileStore in a temporary
+     directory: ``compress_mesh`` (K1) must equal phase A's stream;
+     ``decompress_mesh`` of A's stream and v2 manifest takes the
+     wavefront route (``decode_mesh_wave``: K2, K3, K4, one window size
+     for all 256 rows) and of the first 64 blocks of C's hintless
+     manifest the scan route (``decode_block_standalone``, torch code);
+     a corrupted copy of A's stream (corrupt_block3) must raise
+     ValueError; ``entry.dryrun_multichip(1)`` must pass its checks.
 
 Phases A, B and E parse block headers with the native walk
 (``ops/wave.parse_headers_host``); on phase A's and B's offsets it is
@@ -60,6 +69,10 @@ their designs (K4's rows must hold records in order without overlap,
 K7's offsets must not decrease), and K1 on every call of phases A, D
 and G against its plain version and the torch form of its design; K6's result
 adds its time on each corpus quarter's 64 blocks alone (quarter_ms).
+Phase H's calls of K1-K4 are held the same way: K1's and K3's in full
+against their plain versions, K2's and K4's on their first rows against
+the plain versions and in full against the torch forms of their designs
+(launches_h in each result).
 
 Prints the card (nvidia-smi name and power limit), MB/s of every phase,
 one JSON line of kernel results, and as its last line
@@ -141,6 +154,17 @@ def corrupt_streams():
             bad[p >> 3] ^= 1 << (p & 7)
         out.append((flips, bytes(bad)))
     return out
+
+
+def corrupt_block3(stream: bytes, man) -> bytes:
+    """A copy of a manifest stream with 8 bytes XOR 0xA5 from 40 bytes
+    past block 3's first byte (the reference's mesh fault injection,
+    tests/test_mesh.py)."""
+    bad = bytearray(stream)
+    off = man.blocks[3][0] // 8 + 40
+    for i in range(8):
+        bad[off + i] ^= 0xA5
+    return bytes(bad)
 
 
 # the corrupt streams of corrupt_streams() that the skeleton walk and K6
@@ -640,6 +664,69 @@ def main() -> int:
         f"decode_range on {ranges}; native and auto backends on "
         f"{len(small)} bytes")
 
+    # ---- phase H: data parallelism, a world of one over NCCL -----------
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from deflate_tpu_torch import entry as EN
+    from deflate_tpu_torch.parallel import mesh as PM
+
+    mesh = PM.make_mesh(device=dev)
+    require(mesh.size() == 1 and dist.get_backend() == "nccl",
+            f"phase H mesh {mesh}, backend {dist.get_backend()}")
+    try:
+        require(PM.compress_mesh(data, 2, mesh) == stream,
+                "warm-up compress_mesh")
+        h_stream, t_hc, lh, ch = run_phase(
+            ["K1"], lambda: PM.compress_mesh(data, 2, mesh))
+        require(h_stream == stream, "compress_mesh differs from phase A's "
+                "stream")
+        require(PM.decompress_mesh(stream, man, mesh) == data,
+                "warm-up decompress_mesh")
+        wave_hits = Capture(PM, "decompress_mesh_wave")
+        try:
+            out, t_hw, lhw, chw = run_phase(
+                ["K2", "K3", "K4"],
+                lambda: PM.decompress_mesh(stream, man, mesh))
+        finally:
+            wave_hits.restore()
+        require(out == data and len(wave_hits.calls) == 1,
+                f"mesh wave decode differs ({len(wave_hits.calls)} wave "
+                f"route calls)")
+        lh.update(lhw)
+        ch.update(chw)
+        sman = dataclasses.replace(hman, blocks=hman.blocks[:64])
+        prefix_h = data[:sum(b[2] for b in sman.blocks)]
+        out, t_hs, _, _ = run_phase(
+            [], lambda: PM.decompress_mesh(hstream, sman, mesh))
+        require(out == prefix_h, "mesh scan decode differs from the prefix")
+        try:
+            PM.decompress_mesh(corrupt_block3(stream, man), man, mesh)
+            corrupt_raised = False
+        except ValueError:
+            corrupt_raised = True
+        require(corrupt_raised, "a corrupted stream decoded on the mesh")
+        t0 = time.perf_counter()
+        rec = EN.dryrun_multichip(1)
+        t_dry = time.perf_counter() - t0
+        require(rec["n_devices"] == 1 and rec["card"] == card,
+                f"dryrun record {rec}")
+    finally:
+        dist.destroy_process_group()
+    say(f"H mesh of 1 rank (NCCL): compress_mesh {t_hc:.3f} s = "
+        f"{mb / t_hc:.2f} MB/s, identical to phase A's stream (K1 "
+        f"{lh['K1']}); decompress_mesh wave route {t_hw:.3f} s = "
+        f"{mb / t_hw:.2f} MB/s (K2 {lh['K2']}, K3 {lh['K3']}, K4 "
+        f"{lh['K4']} launches, W64 {chw['K2'][0][3]} for all "
+        f"{len(man.blocks)} rows)")
+    say(f"H decompress_mesh scan route, first {len(sman.blocks)} blocks "
+        f"of phase C: {t_hs:.3f} s = {len(prefix_h) / 1e6 / t_hs:.2f} MB/s "
+        f"({t_hs * 1e3 / len(sman.blocks):.1f} ms a block); corrupted "
+        f"stream raised ValueError; dryrun_multichip(1) in {t_dry:.3f} s, "
+        f"mesh speedup {rec['mesh_speedup_vs_single_program']:.3f} "
+        f"(passed: {rec['passed']})")
+
     # ---- each kernel against its plain version, phase operands ---------
     def timed(fn, reps: int = KERNEL_REPS) -> float:
         return cuda_ms(torch, fn, reps)
@@ -711,12 +798,33 @@ def main() -> int:
                            if library else None),
             "card": card})
 
-    # every K1 call of phases A, D and G against the plain version and
+    def head(c, n=PLAIN_PREFIX):
+        """A call's operands cut to their first n rows."""
+        return tuple(x[:n] if isinstance(x, torch.Tensor) else x for x in c)
+
+    # phase H's calls: K2's and K4's first rows against the plain
+    # versions, every row against the torch forms of their designs; K3's
+    # in full against the plain version (K1's join K1's lists below)
+    h_err = {
+        "K2": max(max(max_abs_err(torch, wave_stagea.decode_mark_kernel(
+            *head(c)), wave_stagea.decode_mark_plain(*head(c))),
+            max_abs_err(torch, wave_stagea.decode_mark_kernel(*c),
+                        wave_stagea.decode_mark_lut(*c))) for c in ch["K2"]),
+        "K3": max(max_abs_err(torch, wave_route.route_kernel(*c),
+                              wave_route.route_plain(*c)) for c in ch["K3"]),
+        "K4": max(max(max_abs_err(torch, wave_fill.fill_matches_kernel(
+            *head(c)), wave_fill.fill_matches_plain(*head(c))),
+            max_abs_err(torch, wave_fill.fill_matches_kernel(*c),
+                        wave_fill.fill_matches_jump(*c))) for c in ch["K4"]),
+    }
+    torch.cuda.synchronize()
+
+    # every K1 call of phases A, D, G and H against the plain version and
     # the torch form of the design, depths_jump
-    k1_all = calls["K1"] + k1_d + k1_g
+    k1_all = calls["K1"] + k1_d + k1_g + ch["K1"]
     k1_more = max(max(max_abs_err(torch, tree.depths_kernel(*c),
                                   tree.depths_plain(*c))
-                      for c in k1_d + k1_g),
+                      for c in k1_d + k1_g + ch["K1"]),
                   max(max_abs_err(torch, tree.depths_kernel(*c),
                                   tree.depths_jump(*c)) for c in k1_all))
     k1_steps = sum(int((c[1].to(torch.int64) - 1).clamp(min=0).sum())
@@ -731,7 +839,7 @@ def main() -> int:
 
     check(f"K1 tree (litlen, dist, CL tree batches of phase A, "
           f"{k1_steps} merge steps; all {len(k1_all)} calls of phases A, "
-          f"D and G also compared with depths_plain and depths_jump; "
+          f"D, G and H also compared with depths_plain and depths_jump; "
           f"kernel_only_ms: dt_tree_depths alone into a preallocated "
           f"output)", "K1",
           "deflate_tpu_torch/csrc/tree.cu",
@@ -744,6 +852,7 @@ def main() -> int:
     results[-1]["merge_steps"] = k1_steps
     results[-1]["launches_d"] = [ld_merge["K1"], ld["K1"]]
     results[-1]["launches_g"] = launches_g
+    results[-1]["launches_h"] = lh["K1"]
     log(f"K1: wrapper {results[-1]['ms']:.4f} ms, dt_tree_depths alone "
         f"{results[-1]['kernel_only_ms']:.4f} ms over {k1_steps} merge "
         f"steps; {len(k1_all)} calls of phases A, D and G compared "
@@ -773,6 +882,8 @@ def main() -> int:
     check(f"K2 decode_mark ({len(calls['K2'])} buckets of phase A, "
           f"{k2_steps} chain steps; all {len(calls['K2']) + len(cb['K2'])} "
           f"calls of phases A and B also compared with decode_mark_lut; "
+          f"phase H's {len(ch['K2'])} calls with both, the plain version "
+          f"on their first {PLAIN_PREFIX} rows; "
           f"kernel_only_ms: dt_decode_mark alone into preallocated "
           f"outputs)", "K2",
           "deflate_tpu_torch/csrc/wave_stagea.cu",
@@ -780,7 +891,8 @@ def main() -> int:
           wave_stagea.decode_mark_kernel, wave_stagea.decode_mark_plain,
           calls["K2"],
           cmp=lambda got, want, c: max(max_abs_err(torch, got, want),
-                                       k2_lut))
+                                       k2_lut, h_err["K2"]))
+    results[-1]["launches_h"] = lh["K2"]
     results[-1]["core_source"] = CORE_SOURCE
     results[-1]["kernel_only_ms"] = sum(k2_kernel_only_ms(c)
                                         for c in calls["K2"])
@@ -790,21 +902,22 @@ def main() -> int:
     log(f"K2: wrapper {results[-1]['ms']:.4f} ms, dt_decode_mark alone "
         f"{results[-1]['kernel_only_ms']:.4f} ms, "
         f"{results[-1]['ns_per_step']:.4f} ns a chain step [{card}]")
-    check(f"K3 route ({len(calls['K3'])} calls of phase A; library_ms: "
+    check(f"K3 route ({len(calls['K3'])} calls of phase A, and phase "
+          f"H's {len(ch['K3'])} compared; library_ms: "
           "torch scatter_ to the same slots; kernel_only_ms: dt_route "
           "alone into preallocated outputs)", "K3",
           "deflate_tpu_torch/csrc/wave_route.cu",
           "deflate_tpu/ops/wave_route.py:46", wave_route.route_kernel,
-          wave_route.route_plain, calls["K3"], library=k3_library_ms)
+          wave_route.route_plain, calls["K3"], library=k3_library_ms,
+          cmp=lambda got, want, c: max(max_abs_err(torch, got, want),
+                                       h_err["K3"]))
+    results[-1]["launches_h"] = lh["K3"]
     results[-1]["kernel_only_ms"] = sum(k3_kernel_only_ms(c)
                                         for c in calls["K3"])
     log(f"K3: wrapper {results[-1]['ms']:.4f} ms, dt_route alone "
         f"{results[-1]['kernel_only_ms']:.4f} ms, scatter_ "
         f"{results[-1]['library_ms']:.4f} ms, bound "
         f"{results[-1]['bound_ms']:.4f} ms [{card}]")
-
-    def prefix(c, n=PLAIN_PREFIX):
-        return tuple(x[:n] if isinstance(x, torch.Tensor) else x for x in c)
 
     def records_in_order(c) -> bool:
         """Every row's live records come in order of opos and none
@@ -820,7 +933,7 @@ def main() -> int:
         return bool(((end[:, :-1] <= p[:, 1:]) | ~live).all())
 
     k4 = calls["K4"]
-    for c in k4:
+    for c in k4 + ch["K4"]:
         require(records_in_order(c), "K4's records overlap or are unordered")
     # every row of every bucket against the torch form of the design
     k4_full = max(max_abs_err(torch, wave_fill.fill_matches_kernel(*c),
@@ -828,14 +941,16 @@ def main() -> int:
     check(f"K4 fill_matches ({len(k4)} buckets of phase A, "
           f"{[int(c[2].clamp(min=0).sum()) for c in k4]} records; compared "
           f"with and plain_ms on the first {PLAIN_PREFIX} blocks of each, "
-          f"all rows with fill_matches_jump)", "K4",
+          f"all rows with fill_matches_jump; phase H's {len(ch['K4'])} "
+          f"calls the same way)", "K4",
           "deflate_tpu_torch/csrc/wave_fill.cu",
           "deflate_tpu/ops/wave_fill.py:336",
           wave_fill.fill_matches_kernel, wave_fill.fill_matches_plain,
-          k4, [prefix(c) for c in k4],
+          k4, [head(c) for c in k4],
           cmp=lambda got, want, c: max(max_abs_err(torch, got, want),
-                                       k4_full),
+                                       k4_full, h_err["K4"]),
           bound_bytes=sum(fill_bytes(c) for c in k4))
+    results[-1]["launches_h"] = lh["K4"]
     results[-1]["fill_source"] = FILL_SOURCE
     results[-1]["per_launch_ms"] = [timed(lambda c=c: wave_fill
                                           .fill_matches_kernel(*c))
@@ -874,7 +989,7 @@ def main() -> int:
           "deflate_tpu/ops/wave_fill.py:384",
           wave_fill.fill_matches_hist_kernel,
           wave_fill.fill_matches_hist_plain, k5,
-          [prefix(c) for c in k5], cmp=k5_cmp,
+          [head(c) for c in k5], cmp=k5_cmp,
           bound_bytes=sum(hist_bytes(c) for c in k5))
 
     def k6_pick(kcalls):

@@ -6,17 +6,17 @@ Port of deflate_tpu/models/wave_decoder.py.  Two entry points:
   hints (a manifest).  Header parse and window extraction on the host,
   span bucketing (one bucket per window size), stored blocks as a plain
   window copy, stages A-F (ops/wave.wave_decode) and the match fill
-  (kernel K4), then reassembly in block order.
+  (kernel K4), then reassembly in block order.  As in the reference,
+  every bucket's operands travel to the device in one copy (one int32
+  buffer, ``prepare_bucketed``), each bucket returns one [n, OW+2]
+  result (``wave_decode_packed``), and the results come back in one
+  copy.
 - ``skeleton_plan`` + ``inflate_wave_planned``: any raw DEFLATE stream
   (foreign zlib/gzip output included).  The native skeleton walk cuts
   it into <= 32 KiB virtual blocks with hints; stages A-F run on groups
   of virtual blocks with synthetic stops, and the ordered match fill
   with a 32 KiB cross-block history (kernel K5) resolves them in stream
   order.
-
-The reference packs each bucket's operands into one buffer because every
-transfer cost a round trip on its TPU link; here each bucket's tensors
-are handed to the device directly.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ import torch
 from deflate_tpu_torch._build import torch_device
 from deflate_tpu_torch.ops import wave as W
 from deflate_tpu_torch.ops import wave_fill as WF
+from deflate_tpu_torch.utils.bits import I32, srl
 
 BUCKETS = (512, 1024, 1536, 2048, 2560, 3072, 3584, 4224)   # W64 sizes
 MD_DEVICE_KEYS = W.MD_KEYS + ("l_litmask",)
@@ -41,8 +42,72 @@ def wave_decode_filled(nw, hints, sizes, md, W64: int, maxl: int = 15,
     return WF.fill_matches(litwords, recs, nmatch), prod, err
 
 
+# ---- single-transfer call packing ----------------------------------------
+# A bucket's 13 operand arrays (windows, hints, sizes, 10 metadata arrays)
+# are packed into one int32 buffer on the host, every bucket's buffer is
+# concatenated, and the whole goes to the device in one copy; each bucket
+# slices its operands back out as views.
+MD_KEYS9 = ("l_lim", "l_first", "l_base", "l_meta", "l_mask",
+            "d_lim", "d_first", "d_base", "d_mask")
+
+
+def _bucket_words(W64: int, n: int) -> int:
+    return n * (2 * W64 + 4) + n * (W64 // 4) + n + n * 272
+
+
+def _pack_bucket(nw, hsel, sizes, md, sel):
+    """One contiguous int32 buffer: nw | hint bytes | sizes | md | litmask."""
+    parts = [np.ascontiguousarray(nw, np.int32).ravel(),
+             np.ascontiguousarray(hsel, np.uint8).view("<i4").ravel(),
+             np.asarray(sizes, np.int32)]
+    for k in MD_KEYS9:
+        parts.append(np.ascontiguousarray(md[k][sel], np.int32).ravel())
+    parts.append(np.ascontiguousarray(md["l_litmask"][sel],
+                                      np.int32).ravel())
+    return np.concatenate(parts)
+
+
+def _unpack_bucket(packed, W64: int, n: int):
+    """Views of one bucket's operands in its packed buffer; the hints
+    are unpacked from their little-endian words into a new tensor."""
+    c = 2 * W64 + 4
+    o0 = n * c
+    nw = packed[:o0].view(n, c)
+    o1 = o0 + n * (W64 // 4)
+    hw = packed[o0:o1].view(n, W64 // 4)
+    hints = torch.stack([srl(hw, 8 * k) & 255 for k in range(4)],
+                        2).reshape(n, W64)
+    o2 = o1 + n
+    sizes = packed[o1:o2]
+    md = {}
+    off = o2
+    for k in MD_KEYS9:
+        md[k] = packed[off:off + 16 * n].view(n, 16)
+        off += 16 * n
+    md["l_litmask"] = packed[off:off + 128 * n].view(n, 16, 8)
+    return nw, hints, sizes, md
+
+
+def wave_decode_packed(packed, W64: int, n: int, off: int = 0,
+                       maxl: int = 15, maxd: int = 15):
+    """wave_decode_filled over a packed operand buffer.
+
+    packed: int32 tensor, possibly the shared all-buckets buffer, with
+    this bucket at word offset off.  maxl/maxd: the bucket's max
+    litlen/dist code lengths (stage A skips compare rounds past them).
+    Returns ONE int32 [n, OW+2] tensor (filled words | produced | err),
+    so that all buckets come back to the host in one copy."""
+    packed = packed[off:off + _bucket_words(W64, n)]
+    nw, hints, sizes, md = _unpack_bucket(packed, W64, n)
+    filled, prod, e = wave_decode_filled(nw, hints, sizes, md, W64, maxl,
+                                         maxd)
+    return torch.cat([filled, prod[:, None].to(I32), e[:, None].to(I32)],
+                     1)
+
+
 def _common_prep(stream: bytes, bit_offsets, out_sizes, hints):
-    """Header parse + stored/Huffman classification."""
+    """Header parse + stored/Huffman classification.  The stored blocks'
+    window extraction is deferred (stored_fn)."""
     bit_offsets = np.asarray(bit_offsets, np.int64)
     out_sizes = np.asarray(out_sizes, np.int64)
     B = len(bit_offsets)
@@ -58,21 +123,28 @@ def _common_prep(stream: bytes, bit_offsets, out_sizes, hints):
     err = np.asarray(md["hdr_err"]).astype(np.int64).copy()
     is_stored = md["btype"] == 0
     sidx = np.nonzero(is_stored & ~md["hdr_err"])[0]
+    stored_fn = None
     if len(sidx):
         err[sidx] |= (md["stored_len"][sidx] != out_sizes[sidx])
+
+        def stored_fn():
+            nw = W.prepare_windows(stream, md["data_start"][sidx], 4096)
+            return nw[:, :WF.OW]
 
     hidx_all = np.nonzero(~is_stored & ~md["hdr_err"])[0]
     overflow = span[hidx_all] > 64 * BUCKETS[-1]
     err[hidx_all[overflow]] = 1
     hidx_all = hidx_all[~overflow]
     return {"B": B, "md": md, "err": err, "sidx": sidx,
-            "out_sizes": out_sizes, "hints": hints, "hidx_all": hidx_all,
-            "need": -(-span[hidx_all] // 64), "stream": stream}
+            "stored_fn": stored_fn, "out_sizes": out_sizes, "hints": hints,
+            "hidx_all": hidx_all, "need": -(-span[hidx_all] // 64),
+            "stream": stream}
 
 
 def _iter_buckets(prep):
-    """Yield (sel, nw, hsel, sizes, W64, (maxl, maxd)) per non-empty span
-    bucket; numpy operands."""
+    """Yield (sel, packed numpy int32, W64, n, (maxl, maxd)) per
+    non-empty span bucket.  The reference also yields npad, the row
+    count padded to its TPU fill kernel's cell; K4 has no cell."""
     md = prep["md"]
     hints = prep["hints"]
     hidx_all, need = prep["hidx_all"], prep["need"]
@@ -97,16 +169,36 @@ def _iter_buckets(prep):
             np.where(cnt_d[sel] > 0, lens16, 0)))))
         maxl = next(t for t in (10, 12, 15) if maxl <= t)
         maxd = next(t for t in (13, 15) if maxd <= t)
-        yield sel, nw, hsel, prep["out_sizes"][sel], W64, (maxl, maxd)
+        packed = _pack_bucket(nw, hsel, prep["out_sizes"][sel], md, sel)
+        yield sel, packed, W64, len(sel), (maxl, maxd)
 
 
-def bucket_tensors(prep, sel, nw, hsel, sizes, device):
-    """One bucket's operands as int32 tensors on `device`."""
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+def prepare_bucketed(stream: bytes, bit_offsets, out_sizes, hints=None,
+                     device="cuda"):
+    """Host prep: header parse, stored/Huffman split, span bucketing,
+    window extraction, and one host-to-device copy of every bucket's
+    operands.
 
-    md = {k: t(prep["md"][k][sel]) for k in MD_DEVICE_KEYS}
-    return t(nw), t(hsel), t(sizes), md
+    Returns (prep dict, calls), each call (sel, (buf, off), W64, n,
+    (maxl, maxd)) ready for wave_decode_packed: buf is the shared
+    operand buffer on `device`, off the bucket's word offset in it.
+    prep["stored_words"] holds the stored blocks' windows (host numpy),
+    or None."""
+    dev = torch_device(device)
+    prep = _common_prep(stream, bit_offsets, out_sizes, hints)
+    calls, bufs = [], []
+    for sel, packed, W64, n, mm in _iter_buckets(prep):
+        calls.append([sel, None, W64, n, mm])
+        bufs.append(packed)
+    if calls:
+        shared = torch.from_numpy(np.concatenate(bufs)).to(dev)
+        off = 0
+        for c, buf in zip(calls, bufs):
+            c[1] = (shared, off)
+            off += buf.size
+    prep["stored_words"] = (prep["stored_fn"]()
+                            if prep["stored_fn"] is not None else None)
+    return prep, [tuple(c) for c in calls]
 
 
 def inflate_wave_device(stream: bytes, bit_offsets, out_sizes, hints=None,
@@ -118,26 +210,27 @@ def inflate_wave_device(stream: bytes, bit_offsets, out_sizes, hints=None,
     bit_offsets: absolute bit of each block's BFINAL bit (manifest);
     out_sizes: expected decoded size per block (manifest); hints:
     [B, >=W64] uint8 per-chunk entry phases, derived by a host walk when
-    absent."""
-    dev = torch_device(device)
-    prep = _common_prep(stream, bit_offsets, out_sizes, hints)
+    absent.  One host-to-device copy for all buckets, one device-to-host
+    copy of all results."""
+    prep, calls = prepare_bucketed(stream, bit_offsets, out_sizes, hints,
+                                   device)
     B, md, err = prep["B"], prep["md"], prep["err"]
     words = np.zeros((B, WF.OW), np.int32)
     produced = np.zeros(B, np.int64)
-    outs = []
-    for sel, nw, hsel, sizes, W64, (ml, mdx) in _iter_buckets(prep):
-        nwt, ht, st, mdt = bucket_tensors(prep, sel, nw, hsel, sizes, dev)
-        outs.append((sel, wave_decode_filled(nwt, ht, st, mdt, W64,
-                                             maxl=ml, maxd=mdx)))
-    sidx = prep["sidx"]
-    if len(sidx):
-        words[sidx] = W.prepare_windows(stream, md["data_start"][sidx],
-                                        4096)[:, :WF.OW]
-        produced[sidx] = md["stored_len"][sidx]
-    for sel, (filled, prod, e) in outs:
-        words[sel] = filled.cpu().numpy()
-        produced[sel] = prod.cpu().numpy()
-        err[sel] |= e.cpu().numpy().astype(np.int64)
+    outs = [wave_decode_packed(buf, W64, n, off=off, maxl=ml, maxd=mdx)
+            for _, (buf, off), W64, n, (ml, mdx) in calls]
+    if prep["stored_words"] is not None:
+        words[prep["sidx"]] = prep["stored_words"]
+        produced[prep["sidx"]] = md["stored_len"][prep["sidx"]]
+    if outs:
+        big = (outs[0] if len(outs) == 1 else torch.cat(outs)).cpu().numpy()
+        row = 0
+        for sel, _, _, n, _ in calls:
+            o = big[row:row + n]
+            row += n
+            words[sel] = o[:, :WF.OW]
+            produced[sel] = o[:, WF.OW]
+            err[sel] |= o[:, WF.OW + 1].astype(np.int64)
     return words, produced, err
 
 

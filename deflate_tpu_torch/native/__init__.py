@@ -19,6 +19,9 @@ pure-Python stand-in behind these functions.
   stitch(segments)          bit-level concatenation of encoded segments
   adler32(data)             the zlib container's checksum
   rfc_tables(which)         the RFC 1951 tables as each source holds them
+
+``build_asan_fuzz()`` builds asan_fuzz.cpp, a fuzz driver of the entry
+points that parse untrusted bytes, under ASan and UBSan.
 """
 from __future__ import annotations
 
@@ -50,28 +53,44 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _target() -> str:
-    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for src in SRCS:
+def _compile(name: str, flags, srcs, suffix: str) -> str:
+    """g++ srcs with flags into _build/<name>_<hash><suffix>, the hash
+    over the flags and the sources, unless that file exists; returns its
+    path.  Raises on failure."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for src in srcs:
         with open(src, "rb") as f:
             digest.update(f.read())
-    return os.path.join(BUILD, f"libdeflate_{digest.hexdigest()[:12]}.so")
+    out = os.path.join(BUILD, f"{name}_{digest.hexdigest()[:12]}{suffix}")
+    if not os.path.exists(out):
+        os.makedirs(BUILD, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        r = subprocess.run([os.environ.get("CXX", "g++"), *flags, "-o", tmp,
+                            *srcs], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"g++ of {name} failed:\n{r.stderr}")
+        os.replace(tmp, out)
+    return out
 
 
 def build() -> str:
     """Compile inflate.cpp and deflate.cpp into one library unless a
     current one exists; returns its path.  Raises on failure."""
-    so = _target()
-    if not os.path.exists(so):
-        os.makedirs(BUILD, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        r = subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS,
-                            "-o", tmp, *SRCS], capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"g++ of the native library failed:\n"
-                               f"{r.stderr}")
-        os.replace(tmp, so)
-    return so
+    return _compile("libdeflate", CXX_FLAGS, SRCS, ".so")
+
+
+ASAN_FLAGS = ["-O1", "-g", "-std=c++17", "-fsanitize=address,undefined",
+              "-fno-sanitize-recover=all"]
+FUZZ_SRC = os.path.join(_HERE, "asan_fuzz.cpp")
+
+
+def build_asan_fuzz() -> str:
+    """Compile the ASan/UBSan fuzz driver (asan_fuzz.cpp) over
+    inflate.cpp and deflate.cpp unless a current build exists; returns
+    the executable's path in _build/.  Run it with no arguments: it
+    exits 0 and prints "asan_fuzz ok=..." when no sanitizer fired.
+    Raises on a failed build."""
+    return _compile("asan_fuzz", ASAN_FLAGS, [FUZZ_SRC] + SRCS, "")
 
 
 def lib() -> ctypes.CDLL:

@@ -402,7 +402,7 @@ int dt_parse_headers(const uint8_t* in, size_t in_len,
     memset(lens, 0, 320);
 
     int64_t off = bit_offsets[b];
-    if (off < 0 || size_t(off + 3) > 8 * in_len) {
+    if (off < 0 || off > 8 * int64_t(in_len) - 3) {  // no overflow at INT64_MAX
       err[b] = 1;
       continue;
     }

@@ -58,19 +58,29 @@ def merge_bitstream(lo, hi, sh, *, leaf_bits: int, density: int,
     return wrap32(words), sh64.sum(1).to(I32)
 
 
+def place_words(words, seg_off, cap_words: int):
+    """Place B word-array segments at bit offsets seg_off [B] (>= 0) in
+    one stream of cap_words words; the segments' bits must not overlap,
+    and bits past cap_words are dropped.
+
+    words: int32 [B, W0], bits beyond each segment's length zero.
+    Returns int32 [cap_words]."""
+    W0 = words.shape[1]
+    off = (seg_off.to(I64)[:, None]
+           + 32 * torch.arange(W0, dtype=I64, device=words.device))
+    out = _place(u32(words).reshape(1, -1), None, off.reshape(1, -1),
+                 cap_words)
+    return wrap32(out[0])
+
+
 def merge_words(words, bits, cap_words: int):
     """Concatenate B word-array segments at bit granularity.
 
     words: int32 [B, W0], bits beyond bits[b] zero; bits: int32 [B].
     Returns (stream int32 [cap_words], total_bits int32)."""
-    Bn, W0 = words.shape
     b64 = bits.to(I64)
-    seg_off = torch.cumsum(b64, 0) - b64
-    off = (seg_off[:, None] + 32 * torch.arange(W0, dtype=I64,
-                                               device=words.device))
-    out = _place(u32(words).reshape(1, -1), None, off.reshape(1, -1),
-                 cap_words)
-    return wrap32(out[0]), b64.sum().to(I32)
+    return (place_words(words, torch.cumsum(b64, 0) - b64, cap_words),
+            b64.sum().to(I32))
 
 
 def place_at(words, seg_words, seg_off):

@@ -31,7 +31,8 @@ class CodecConfig:
                  host when False.
     emit_manifest: also produce a block-index manifest (seek/resume).
     mesh_axis:   name of the data-parallel mesh axis for multi-device runs
-                 (kept for parity with deflate_tpu; nothing reads it yet).
+                 (read by parallel/mesh.compress_mesh when no mesh is
+                 given).
     """
 
     level: int = 2

@@ -474,3 +474,41 @@ def test_speculative_decoder_on_card_equals_cpu(cuda_device):
             assert D.decompress(raw, size, device=cuda_device,
                                 force_device=True, stats=st) == data, name
             assert st["device_path"] == "speculative", name
+
+
+def test_packed_decode_on_card_equals_cpu(cuda_device):
+    """The single-transfer bucketed decode (inflate_wave_device) on the
+    card gives the CPU's words, produced counts and error flags."""
+    data = corpus(8, seed=44)
+    stream, man = M.compress_with_manifest(data, level=2, device="cpu")
+    args = (stream, [b[0] for b in man.blocks], [b[2] for b in man.blocks],
+            man.hint_array())
+    got = WD.inflate_wave_device(*args, device=cuda_device)
+    want = WD.inflate_wave_device(*args, device="cpu")
+    for g, w, name in zip(got, want, ("words", "produced", "err")):
+        assert np.array_equal(g, w), name
+    assert not got[2].any()
+
+
+def test_mesh_world_of_one_on_card_equals_cpu(cuda_device):
+    """compress_mesh and both decompress_mesh routes on a world of one
+    over NCCL give the CPU's stream and the input back."""
+    import torch.distributed as dist
+
+    from deflate_tpu_torch.parallel import mesh as PM
+
+    data = corpus(6, seed=35)[:6 * 32768 - 999]
+    s_cpu, m_cpu = M.compress_with_manifest(data, level=2, device="cpu")
+    h_cpu, hm_cpu = M.compress_with_manifest(data, level=2, hints=False,
+                                             device="cpu")
+    mesh = PM.make_mesh(device="cuda")
+    try:
+        assert mesh.size() == 1 and dist.get_backend() == "nccl"
+        assert PM.compress_mesh(data, 2, mesh) == s_cpu
+        assert PM.decompress_mesh(s_cpu, m_cpu, mesh) == data
+        assert PM.decompress_mesh(h_cpu, hm_cpu, mesh) == data
+        with pytest.raises(ValueError):
+            PM.decompress_mesh(s_cpu[:len(s_cpu) // 2] + bytes(
+                len(s_cpu) - len(s_cpu) // 2), m_cpu, mesh)
+    finally:
+        dist.destroy_process_group()

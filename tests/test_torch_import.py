@@ -27,7 +27,10 @@ MODULES = ("deflate_tpu_torch", "deflate_tpu_torch._build",
            "deflate_tpu_torch.models.host_inflate",
            "deflate_tpu_torch.models.block_decoder",
            "deflate_tpu_torch.runtime.manifest",
-           "deflate_tpu_torch.runtime.stitch")
+           "deflate_tpu_torch.runtime.stitch",
+           "deflate_tpu_torch.parallel", "deflate_tpu_torch.parallel.mesh",
+           "deflate_tpu_torch.parallel.distributed",
+           "deflate_tpu_torch.entry")
 
 
 def _run(code: str, cwd: str):

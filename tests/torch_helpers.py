@@ -533,3 +533,189 @@ def dynamic_header(hlit: int, hdist: int, cl_lens: dict, ops) -> bytes:
         if sym in extra:
             fields.append((ev, extra[sym]))
     return pack_fields(fields)
+
+
+# ---- multi-rank runs (parallel/): gloo ranks in spawned processes ------
+from chip_smoke import corrupt_block3  # noqa: E402,F401
+
+RANK_TIMEOUT = 120          # seconds each spawned rank may take
+
+
+def mk_blocks(B, rng, fill=1.0):
+    """tests/test_mesh.py's _mk_blocks: B blocks of low-alphabet text,
+    random bytes and a repeated 97-byte pattern in turn, block i holding
+    32768 * fill - 17 * i bytes.  Returns (blocks uint8 [B, 32768],
+    blens int32 [B])."""
+    blocks = np.zeros((B, BLOCK), np.uint8)
+    blens = np.zeros((B,), np.int32)
+    for i in range(B):
+        k = max(1, int(BLOCK * fill) - 17 * i)
+        if i % 3 == 0:
+            blocks[i, :k] = rng.integers(97, 105, k, dtype=np.uint8)
+        elif i % 3 == 1:
+            blocks[i, :k] = rng.integers(0, 256, k, dtype=np.uint8)
+        else:
+            pat = rng.integers(0, 256, 97, dtype=np.uint8)
+            blocks[i, :k] = np.tile(pat, k // 97 + 1)[:k]
+        blens[i] = k
+    return blocks, blens
+
+
+def _rank_main(tmp: str, world: str, rank: str, job: str,
+               port: str) -> None:
+    """One spawned rank: join the world (a FileStore in tmp, or the port's
+    distributed.init at 127.0.0.1:port when port is not "0"), run
+    JOBS[job] on the pickled arguments, pickle its result or exception."""
+    import pickle
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    world, rank = int(world), int(rank)
+    with open(os.path.join(tmp, f"{job}.args"), "rb") as f:
+        args = pickle.load(f)
+    if port != "0":
+        from deflate_tpu_torch.parallel import distributed as DD
+
+        DD.init(f"127.0.0.1:{port}", world, rank, device="cpu")
+    else:
+        store = dist.FileStore(os.path.join(tmp, f"{job}.store"), world)
+        dist.init_process_group("gloo", store=store, rank=rank,
+                                world_size=world)
+    try:
+        res = {"result": JOBS[job](*args)}
+    except Exception as e:                       # noqa: BLE001
+        res = {"error": f"{type(e).__name__}: {e}"}
+    with open(os.path.join(tmp, f"{job}.{rank}.out"), "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
+def run_ranks(tmp_path, world: int, job: str, *args, port: int = 0,
+              timeout: float = RANK_TIMEOUT):
+    """Run JOBS[job](*args) on `world` gloo ranks, one spawned process
+    each, joined through a FileStore in tmp_path (or through
+    distributed.init on 127.0.0.1:port).  Each process is killed, and the
+    test fails, when it outlives its timeout: a rank left hanging in a
+    collective fails this test, not the suite.  Returns each rank's
+    result in rank order."""
+    import pickle
+    import subprocess
+    import time
+
+    tmp = str(tmp_path)
+    with open(os.path.join(tmp, f"{job}.args"), "wb") as f:
+        pickle.dump(args, f)
+    code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
+            "import torch_helpers as H; H._rank_main(*sys.argv[3:])")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    tests = os.path.join(ROOT, "tests")
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, ROOT, tests, tmp, str(world), str(r),
+         job, str(port)], cwd=tmp, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    logs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, err = p.communicate(
+                    timeout=max(1.0, t0 + timeout - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pytest.fail(f"rank {r} of {world} ({job}) outlived its "
+                            f"{timeout} s timeout (a hang)")
+            logs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (rc, out, err) in enumerate(logs):
+        assert rc == 0, f"rank {r} of {world} ({job}) exited {rc}:\n{err}"
+        with open(os.path.join(tmp, f"{job}.{r}.out"), "rb") as f:
+            res = pickle.load(f)
+        assert "result" in res, f"rank {r} of {world} ({job}): {res}"
+        results.append(res["result"])
+    return results
+
+
+def _raises(fn):
+    """The exception class name fn raises, or None."""
+    try:
+        fn()
+    except Exception as e:                       # noqa: BLE001
+        return type(e).__name__
+    return None
+
+
+def job_encode(data, blocks, blens):
+    """compress_mesh of data at levels 0 and 2 (with a mesh, and through
+    CodecConfig's level and mesh_axis without one), and encode_mesh of
+    this rank's shard of blocks at phase0 5."""
+    from deflate_tpu_torch.parallel import mesh as PM
+    from deflate_tpu_torch.utils.config import CodecConfig
+
+    mesh = PM.make_mesh(device="cpu")
+    me, ndev = mesh.get_local_rank(), mesh.size()
+    Bl = len(blens) // ndev
+    sl = slice(me * Bl, (me + 1) * Bl)
+    out = {"world": ndev, "axis": mesh.mesh_dim_names}
+    for level in (0, 2):
+        out[f"compress{level}"] = PM.compress_mesh(data, level, mesh)
+        w, total = PM.encode_mesh(
+            torch.from_numpy(blocks[sl]), torch.from_numpy(blens[sl]),
+            torch.ones(Bl, dtype=torch.bool), len(blens) - 1, level, mesh,
+            phase0=5)
+        out[f"phase5_{level}"] = (w.numpy(), total)
+    out["config"] = PM.compress_mesh(
+        data, 2, config=CodecConfig(level=0, mesh_axis="blocks"))
+    return out
+
+
+def job_decode(stream, man_bytes, hstream, hman_bytes):
+    """decompress_mesh of a v2 manifest (with a spy on the wave route)
+    and of a hintless one, then of corrupted copies of both streams."""
+    from deflate_tpu_torch.parallel import mesh as PM
+    from deflate_tpu_torch.runtime.manifest import Manifest
+
+    mesh = PM.make_mesh(device="cpu")
+    man, hman = Manifest.from_bytes(man_bytes), Manifest.from_bytes(
+        hman_bytes)
+    hits = []
+    real = PM.decompress_mesh_wave
+    PM.decompress_mesh_wave = lambda *a, **k: hits.append(1) or real(*a, **k)
+    try:
+        wave = PM.decompress_mesh(stream, man, mesh)
+        n_wave = len(hits)
+        scan = PM.decompress_mesh(hstream, hman, mesh)
+        n_scan = len(hits) - n_wave
+    finally:
+        PM.decompress_mesh_wave = real
+    return {"wave": wave, "scan": scan, "wave_route_calls": (n_wave, n_scan),
+            "corrupt_wave": _raises(lambda: PM.decompress_mesh(
+                corrupt_block3(stream, man), man, mesh)),
+            "corrupt_scan": _raises(lambda: PM.decompress_mesh(
+                corrupt_block3(hstream, hman), hman, mesh))}
+
+
+def job_distributed(data):
+    """compress_distributed on the global mesh of a world joined by
+    distributed.init."""
+    from deflate_tpu_torch.parallel import distributed as DD
+
+    mesh = DD.global_mesh()
+    return {"world": mesh.size(), "device": mesh.device_type,
+            "stream": DD.compress_distributed(data, level=2)}
+
+
+def job_dryrun(world):
+    """entry.dryrun_multichip over the world, on the CPU."""
+    from deflate_tpu_torch import entry
+
+    return entry.dryrun_multichip(world, device="cpu")
+
+
+JOBS = {"encode": job_encode, "decode": job_decode,
+        "distributed": job_distributed, "dryrun": job_dryrun}
