@@ -291,6 +291,7 @@ def main() -> int:
     from deflate_tpu_torch.ops import block_inflate, pack, tree, \
         wave, wave_fill, wave_route, wave_stagea
     from deflate_tpu_torch.runtime import manifest as M
+    from deflate_tpu_torch.utils import metrics
     from deflate_tpu_torch.utils.bits import wrap32
 
     dev = torch.device("cuda", 0)
@@ -311,31 +312,33 @@ def main() -> int:
     native.lib()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s [{card}]")
 
-    # kernel -> (module, wrapper, launch counter)
+    # kernel -> (module, wrapper); its launches count as kernel.<K>
     kernels = {
-        "K1": (tree, "depths_kernel", "launches"),
-        "K2": (wave_stagea, "decode_mark_kernel", "launches"),
-        "K3": (wave_route, "route_kernel", "launches"),
-        "K4": (wave_fill, "fill_matches_kernel", "launches"),
-        "K5": (wave_fill, "fill_matches_hist_kernel", "hist_launches"),
-        "K6": (block_inflate, "inflate_blocks_kernel", "launches"),
-        "K7": (pack, "pack_blocks_kernel", "launches"),
-        "K8": (wave_stagea, "decode_positions_kernel", "positions_launches"),
+        "K1": (tree, "depths_kernel"),
+        "K2": (wave_stagea, "decode_mark_kernel"),
+        "K3": (wave_route, "route_kernel"),
+        "K4": (wave_fill, "fill_matches_kernel"),
+        "K5": (wave_fill, "fill_matches_hist_kernel"),
+        "K6": (block_inflate, "inflate_blocks_kernel"),
+        "K7": (pack, "pack_blocks_kernel"),
+        "K8": (wave_stagea, "decode_positions_kernel"),
     }
 
+    def launched_since_reset(k: str) -> int:
+        return metrics.snapshot()["counts"].get("kernel." + k, 0)
+
     def run_phase(keys, fn):
-        """fn() with the counts of `keys` set to 0 just before and read
-        just after, and their operands captured; returns (result,
-        seconds, launches, captures)."""
+        """fn() with the counters reset just before and the launches of
+        `keys` read just after, and their operands captured; returns
+        (result, seconds, launches, captures)."""
         caps = {k: Capture(kernels[k][0], kernels[k][1]) for k in keys}
-        for mod, _, cnt in kernels.values():
-            setattr(mod, cnt, 0)
+        metrics.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launched = {k: getattr(kernels[k][0], kernels[k][2]) for k in keys}
+        launched = {k: launched_since_reset(k) for k in keys}
         for c in caps.values():
             c.restore()
         missing = [k for k, n in launched.items() if n == 0]
@@ -509,7 +512,7 @@ def main() -> int:
                 "warm-up split decode")
         out, t_e, le, ce = run_phase(
             ["K3", "K4", "K8"], lambda: M.decode_all(s3, m3, device=dev))
-        k2_in_e = wave_stagea.launches
+        k2_in_e = launched_since_reset("K2")
         _, produced, err = WD.inflate_wave_device(
             s3, [b[0] for b in m3.blocks], [b[2] for b in m3.blocks],
             m3.hint_array(), device=dev)

@@ -55,6 +55,7 @@ import numpy as np
 from deflate_tpu_torch.models import host_inflate as _hi
 from deflate_tpu_torch.runtime import stitch as _stitch
 from deflate_tpu_torch.runtime.manifest import _as_u8, split_blocks
+from deflate_tpu_torch.utils import metrics as _metrics
 from deflate_tpu_torch.utils.config import CodecConfig
 from deflate_tpu_torch.utils.tables import BLOCK_SIZE
 
@@ -84,18 +85,22 @@ def _encode_segments(buf: np.ndarray, level: int, dev, phase: int = 0,
 
     from deflate_tpu_torch.models import encoder as E
 
-    blocks, blens = split_blocks(buf)
+    with _metrics.span("encode.split"):
+        blocks, blens = split_blocks(buf)
     n = len(blens)
     segments = []
     for lo in range(0, n, SEGMENT_BLOCKS):
         hi = min(n, lo + SEGMENT_BLOCKS)
+        with _metrics.span("encode.split"):
+            blocks_d = _metrics.to_device(blocks[lo:hi], dev)
+            blens_d = _metrics.to_device(blens[lo:hi], dev)
         words, total = E.encode_batch(
-            torch.from_numpy(blocks[lo:hi]).to(dev),
-            torch.from_numpy(blens[lo:hi]).to(dev),
+            blocks_d, blens_d,
             torch.ones(hi - lo, dtype=torch.bool, device=dev),
             hi - lo - 1 if final and hi == n else -1, level, phase)
-        total = int(total)
-        segments.append((words.cpu().numpy(), total))
+        with _metrics.span("encode.to_host"):
+            total = int(_metrics.to_host(total))
+            segments.append((_metrics.to_host(words).numpy(), total))
         phase = (phase + total) & 7
     return segments
 
@@ -128,6 +133,11 @@ def compress(data, level: int = 2, backend: str = "device",
     histogram, from a second, size-only planning pass over all blocks).
     device: a torch device, the card by default; it must exist.
     """
+    with _metrics.span("encode"):
+        return _compress(data, level, backend, config, stats, device)
+
+
+def _compress(data, level, backend, config, stats, device) -> bytes:
     from deflate_tpu_torch._build import torch_device
 
     dev = torch_device(device)
@@ -175,7 +185,8 @@ def compress(data, level: int = 2, backend: str = "device",
         return out
 
     segments = _encode_segments(buf, level, dev)
-    stream = _stitch.words_to_bytes(*_stitch.stitch_segments(segments))
+    with _metrics.span("encode.to_host"):
+        stream = _stitch.words_to_bytes(*_stitch.stitch_segments(segments))
     if report is not None:
         import torch
 
@@ -256,43 +267,52 @@ def _decompress_impl(raw: bytes, out_size, device, path: dict | None,
     propagates; the next decoder is tried only where a path declines the
     stream (no plan, a window past the largest bucket, a flagged block,
     another output size, PallasDecodeError).  The last device decoder,
-    the speculative one, ends in the host decoder itself."""
+    the speculative one, ends in the host decoder itself.  Counts the
+    decoder that served in decode.path.<path> (the speculative decoder
+    itself counts decode.path.speculative or .speculative_host)."""
     def _mark(p):
         if path is not None:
             path["path"] = p
 
-    if device is not None and not force_device:
-        device = None
-        if path is not None:
-            path["redirected"] = "device_to_host_default"
-    if device is not None:
-        from deflate_tpu_torch.models import block_decoder as _bd
+    with _metrics.span("decode"):
+        if device is not None and not force_device:
+            device = None
+            if path is not None:
+                path["redirected"] = "device_to_host_default"
+        if device is not None:
+            from deflate_tpu_torch.models import block_decoder as _bd
 
-        wave_out = _try_wave_decompress(raw, out_size, device)
-        if wave_out is not None:
-            _mark("wave")
-            return wave_out
-        try:
-            # K6: any stream whose blocks are self-contained (always
-            # true for this package's encoder output, quirk Q5)
-            out = _bd.inflate_stream(raw, device=device)
-            _mark("pallas_scalar")
-            return out
-        except _bd.PallasDecodeError:
-            pass
-        from deflate_tpu_torch.models import decoder as _dd
+            wave_out = _try_wave_decompress(raw, out_size, device)
+            if wave_out is not None:
+                _metrics.count("decode.path.wave")
+                _mark("wave")
+                return wave_out
+            with _metrics.span("decode.fallback"):
+                try:
+                    # K6: any stream whose blocks are self-contained
+                    # (always true for this package's encoder output,
+                    # quirk Q5)
+                    out = _bd.inflate_stream(raw, device=device)
+                    _metrics.count("decode.path.pallas_scalar")
+                    _mark("pallas_scalar")
+                    return out
+                except _bd.PallasDecodeError:
+                    pass
+                from deflate_tpu_torch.models import decoder as _dd
 
-        _mark("speculative")
-        return _dd.inflate_device(raw, out_size, device=device)
-    from deflate_tpu_torch import native as _nat
+                _mark("speculative")
+                return _dd.inflate_device(raw, out_size, device=device)
+        from deflate_tpu_torch import native as _nat
 
-    try:
-        out = _nat.inflate(raw, out_size or max(1024, 8 * len(raw)),
-                           exact=out_size is not None)
-    except ValueError as e:
-        raise InflateError(str(e)) from None
-    _mark("native_host")
-    return out
+        with _metrics.span("decode.fallback"):
+            try:
+                out = _nat.inflate(raw, out_size or max(1024, 8 * len(raw)),
+                                   exact=out_size is not None)
+            except ValueError as e:
+                raise InflateError(str(e)) from None
+        _metrics.count("decode.path.native_host")
+        _mark("native_host")
+        return out
 
 
 def _try_wave_decompress(raw: bytes, out_size, device) -> bytes | None:
@@ -302,7 +322,8 @@ def _try_wave_decompress(raw: bytes, out_size, device) -> bytes | None:
     when the walk or the decoder declines the stream."""
     from deflate_tpu_torch.models import wave_decoder as _wd
 
-    plan = _wd.skeleton_plan(raw)
+    with _metrics.span("decode.skeleton"):
+        plan = _wd.skeleton_plan(raw)
     if plan is None:
         return None
     out, err = _wd.inflate_wave_planned(raw, plan, device=device)

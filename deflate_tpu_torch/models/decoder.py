@@ -28,6 +28,7 @@ from deflate_tpu_torch.models import host_inflate as HI
 from deflate_tpu_torch.ops import bitpack as BP
 from deflate_tpu_torch.ops import header_decode as HD
 from deflate_tpu_torch.ops import inflate_scan as IS
+from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils import tables as T
 from deflate_tpu_torch.utils.bits import I32, I64
 
@@ -247,5 +248,7 @@ def inflate_device(data: bytes, out_size_hint: int | None = None,
         out, total, _, error = decode_stream(words, nbits, span, out_cap,
                                              max_blocks)
         if not bool(error):
+            metrics.count("decode.path.speculative")
             return out[:int(total)].cpu().numpy().tobytes()
+    metrics.count("decode.path.speculative_host")
     return HI.inflate_raw(data, out_size_hint)

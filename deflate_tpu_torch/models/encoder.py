@@ -28,6 +28,7 @@ from deflate_tpu_torch.ops import lz77 as LZ
 from deflate_tpu_torch.ops import pack as PK
 from deflate_tpu_torch.ops import wave_route as WR
 from deflate_tpu_torch.ops.wave import HINT_NONE
+from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils import tables as T
 from deflate_tpu_torch.utils.bits import I32, I64, M32, exclusive, u32, wrap32
 
@@ -55,7 +56,7 @@ L3_PARSE_TILE = 2048
 
 
 def _t(a, dev):
-    return torch.as_tensor(a, dtype=I32, device=dev)
+    return metrics.to_device(torch.as_tensor(a, dtype=I32), dev)
 
 
 def _flog2(x: torch.Tensor) -> torch.Tensor:
@@ -184,16 +185,19 @@ def _plan_post(pre, dyn_lit_lens, dyn_dist_lens, hv, hl, header_bits):
 def batch_plan(blocks, blens, level: int):
     """Stage A over a batch: tokens/histograms, batched tree builds
     (litlen, dist and the header's CL tree — kernel K1 on CUDA), header
-    fields, candidate sizes."""
-    pre = _plan_pre(blocks, blens, level)
-    dyn_lit_lens = H.huffman_lengths_batch(pre["hist_lit"], T.MAX_CODE_LEN)
-    dyn_dist_lens = H.huffman_lengths_batch(pre["hist_dist"],
-                                            T.MAX_CODE_LEN)
-    hpre = HDR.header_pre(dyn_lit_lens, dyn_dist_lens)
-    cl_lens = H.huffman_lengths_batch(hpre["cl_hist"], T.MAX_CL_CODE_LEN)
-    hv, hl, hb = HDR.header_post(hpre, cl_lens)
-    return {**pre, **_plan_post(pre, dyn_lit_lens, dyn_dist_lens,
-                                hv, hl, hb)}
+    fields, candidate sizes.  Its span holds the lz77 spans."""
+    with metrics.span("encode.trees"):
+        pre = _plan_pre(blocks, blens, level)
+        dyn_lit_lens = H.huffman_lengths_batch(pre["hist_lit"],
+                                               T.MAX_CODE_LEN)
+        dyn_dist_lens = H.huffman_lengths_batch(pre["hist_dist"],
+                                                T.MAX_CODE_LEN)
+        hpre = HDR.header_pre(dyn_lit_lens, dyn_dist_lens)
+        cl_lens = H.huffman_lengths_batch(hpre["cl_hist"],
+                                          T.MAX_CL_CODE_LEN)
+        hv, hl, hb = HDR.header_post(hpre, cl_lens)
+        return {**pre, **_plan_post(pre, dyn_lit_lens, dyn_dist_lens,
+                                    hv, hl, hb)}
 
 
 def block_plan(block, blen, level: int):
@@ -646,21 +650,27 @@ def _encode(blocks, blens, live, final_idx: int, level: int, phase0: int,
         raise ValueError(f"unknown pack backend {pack!r}")
     B = blocks.shape[0]
     plans = batch_plan(blocks, blens, level)
-    choice, pad, offset, bits = choose_blocks(
-        plans["fixed_bits"], plans["dyn_bits"], blens, live, level, phase0)
-    bfinal = torch.arange(B, device=blocks.device) == final_idx
-    if pack == "merge":
-        f = _emit_fields_base(blocks, blens, plans, choice, pad, bfinal)
-        words = _emit_merge_batch(blocks, blens, pad, f)
-    else:
-        f = _emit_fields(blocks, blens, plans, choice, pad, bfinal)
-        emit = _emit_scatter if pack == "scatter" else _emit_kernel
-        words = emit(blocks, blens, pad, f)
-    words = torch.where(live[:, None], words, 0)
-    # the first block's sub-byte entry phase is baked into its own bits
-    out, total = BM.merge_words(words, bits, B * WB)
-    # hints from the per-symbol widths, not the fused packets' widths
-    hints = block_hints(f["sh_sym"], f["stored"]) if want_hints else None
+    with metrics.span("encode.choose"):
+        choice, pad, offset, bits = choose_blocks(
+            plans["fixed_bits"], plans["dyn_bits"], blens, live, level,
+            phase0)
+    with metrics.span("encode.emit"):
+        bfinal = torch.arange(B, device=blocks.device) == final_idx
+        if pack == "merge":
+            f = _emit_fields_base(blocks, blens, plans, choice, pad, bfinal)
+            words = _emit_merge_batch(blocks, blens, pad, f)
+        else:
+            f = _emit_fields(blocks, blens, plans, choice, pad, bfinal)
+            emit = _emit_scatter if pack == "scatter" else _emit_kernel
+            words = emit(blocks, blens, pad, f)
+        words = torch.where(live[:, None], words, 0)
+        # the first block's sub-byte entry phase is baked into its own bits
+        out, total = BM.merge_words(words, bits, B * WB)
+    hints = None
+    if want_hints:
+        with metrics.span("encode.hints"):
+            # from the per-symbol widths, not the fused packets' widths
+            hints = block_hints(f["sh_sym"], f["stored"])
     return out, total, offset, bits, hints
 
 

@@ -26,6 +26,7 @@ import torch
 from deflate_tpu_torch._build import torch_device
 from deflate_tpu_torch.ops import wave as W
 from deflate_tpu_torch.ops import wave_fill as WF
+from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils.bits import I32, srl
 
 BUCKETS = (512, 1024, 1536, 2048, 2560, 3072, 3584, 4224)   # W64 sizes
@@ -38,8 +39,9 @@ def wave_decode_filled(nw, hints, sizes, md, W64: int, maxl: int = 15,
     words int32 [n, 8192], produced [n], err [n])."""
     litwords, rec0, rec1, nmatch, prod, err = W.wave_decode(
         nw, hints, sizes, md, W64, maxl=maxl, maxd=maxd)
-    recs = WF.pack_fill_recs(rec0, rec1)
-    return WF.fill_matches(litwords, recs, nmatch), prod, err
+    with metrics.span("decode.fill"):
+        recs = WF.pack_fill_recs(rec0, rec1)
+        return WF.fill_matches(litwords, recs, nmatch), prod, err
 
 
 # ---- single-transfer call packing ----------------------------------------
@@ -185,19 +187,22 @@ def prepare_bucketed(stream: bytes, bit_offsets, out_sizes, hints=None,
     prep["stored_words"] holds the stored blocks' windows (host numpy),
     or None."""
     dev = torch_device(device)
-    prep = _common_prep(stream, bit_offsets, out_sizes, hints)
-    calls, bufs = [], []
-    for sel, packed, W64, n, mm in _iter_buckets(prep):
-        calls.append([sel, None, W64, n, mm])
-        bufs.append(packed)
+    with metrics.span("decode.headers"):
+        prep = _common_prep(stream, bit_offsets, out_sizes, hints)
+    with metrics.span("decode.windows"):
+        calls, bufs = [], []
+        for sel, packed, W64, n, mm in _iter_buckets(prep):
+            calls.append([sel, None, W64, n, mm])
+            bufs.append(packed)
+        prep["stored_words"] = (prep["stored_fn"]()
+                                if prep["stored_fn"] is not None else None)
     if calls:
-        shared = torch.from_numpy(np.concatenate(bufs)).to(dev)
+        with metrics.span("decode.to_device"):
+            shared = metrics.to_device(np.concatenate(bufs), dev)
         off = 0
         for c, buf in zip(calls, bufs):
             c[1] = (shared, off)
             off += buf.size
-    prep["stored_words"] = (prep["stored_fn"]()
-                            if prep["stored_fn"] is not None else None)
     return prep, [tuple(c) for c in calls]
 
 
@@ -219,18 +224,20 @@ def inflate_wave_device(stream: bytes, bit_offsets, out_sizes, hints=None,
     produced = np.zeros(B, np.int64)
     outs = [wave_decode_packed(buf, W64, n, off=off, maxl=ml, maxd=mdx)
             for _, (buf, off), W64, n, (ml, mdx) in calls]
-    if prep["stored_words"] is not None:
-        words[prep["sidx"]] = prep["stored_words"]
-        produced[prep["sidx"]] = md["stored_len"][prep["sidx"]]
-    if outs:
-        big = (outs[0] if len(outs) == 1 else torch.cat(outs)).cpu().numpy()
-        row = 0
-        for sel, _, _, n, _ in calls:
-            o = big[row:row + n]
-            row += n
-            words[sel] = o[:, :WF.OW]
-            produced[sel] = o[:, WF.OW]
-            err[sel] |= o[:, WF.OW + 1].astype(np.int64)
+    with metrics.span("decode.to_host"):
+        if prep["stored_words"] is not None:
+            words[prep["sidx"]] = prep["stored_words"]
+            produced[prep["sidx"]] = md["stored_len"][prep["sidx"]]
+        if outs:
+            big = metrics.to_host(
+                outs[0] if len(outs) == 1 else torch.cat(outs)).numpy()
+            row = 0
+            for sel, _, _, n, _ in calls:
+                o = big[row:row + n]
+                row += n
+                words[sel] = o[:, :WF.OW]
+                produced[sel] = o[:, WF.OW]
+                err[sel] |= o[:, WF.OW + 1].astype(np.int64)
     return words, produced, err
 
 
@@ -319,13 +326,8 @@ def inflate_wave_planned(stream: bytes, plan, device="cuda"):
     if W64 is None:
         return None, np.ones(n, np.int64)
 
-    md = W.parse_headers_host(stream, plan["parent_bit"])
-    nw = W.prepare_windows(stream, plan["start_bit"], W64)
-    hints = np.full((n, W64), W.HINT_NONE, np.uint8)
-    hav = min(W64, plan["hints"].shape[1])
-    hints[:, :hav] = plan["hints"][:, :hav]
-    stop = np.where(whole | stored, -1, span).astype(np.int32)
-
+    with metrics.span("decode.headers"):
+        md = W.parse_headers_host(stream, plan["parent_bit"])
     npad = -(-n // GROUP) * GROUP
 
     def pad(a, fill=0):
@@ -334,31 +336,41 @@ def inflate_wave_planned(stream: bytes, plan, device="cuda"):
                 [a, np.full((npad - n,) + a.shape[1:], fill, a.dtype)])
         return a
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    with metrics.span("decode.windows"):
+        nw = W.prepare_windows(stream, plan["start_bit"], W64)
+        hints = np.full((n, W64), W.HINT_NONE, np.uint8)
+        hav = min(W64, plan["hints"].shape[1])
+        hints[:, :hav] = plan["hints"][:, :hav]
+        stop = np.where(whole | stored, -1, span).astype(np.int32)
+        stored_p = pad(stored)
+        stored_p[n:] = True                 # padding rows pass through
+        host = {"nw": pad(nw), "hints": pad(hints, W.HINT_NONE).astype(
+                    np.int32),
+                "sizes": pad(out_len.astype(np.int32)),
+                "stop": pad(stop, -1), "stored": stored_p}
+        host.update({k: pad(np.asarray(md[k]).astype(np.int32))
+                     for k in MD_DEVICE_KEYS})
 
-    nw_p = pad(nw)
-    hints_p = pad(hints, W.HINT_NONE).astype(np.int32)
-    sizes_p = pad(out_len.astype(np.int32))
-    stop_p = pad(stop, -1)
-    stored_p = pad(stored)
-    stored_p[n:] = True                     # padding rows pass through
-    md_p = {k: pad(np.asarray(md[k]).astype(np.int32))
-            for k in MD_DEVICE_KEYS}
-
+    # every group's operands in one copy each; the groups take row slices
+    with metrics.span("decode.to_device"):
+        d = {k: metrics.to_device(np.ascontiguousarray(v), dev)
+             for k, v in host.items()}
     parts = []
     for g0 in range(0, npad, GROUP):
-        sl = slice(g0, g0 + GROUP)
+        g = {k: v[g0:g0 + GROUP] for k, v in d.items()}
         parts.append(_wave_group(
-            t(nw_p[sl]), t(hints_p[sl]), t(sizes_p[sl]),
-            {k: t(v[sl]) for k, v in md_p.items()}, t(stop_p[sl]),
-            t(stored_p[sl]), W64))
+            g["nw"], g["hints"], g["sizes"],
+            {k: g[k] for k in MD_DEVICE_KEYS}, g["stop"], g["stored"],
+            W64))
     lit, recs, nm, prod, err = (torch.cat(x) for x in zip(*parts))
-    filled = WF.fill_matches_hist(lit, recs, nm, t(sizes_p))
+    with metrics.span("decode.fill"):
+        filled = WF.fill_matches_hist(lit, recs, nm, d["sizes"])
 
-    w = filled[:n].cpu().numpy().view(np.uint8).reshape(n, -1)
-    produced = prod[:n].cpu().numpy()
-    err = err[:n].cpu().numpy().astype(np.int64)
-    err |= (produced != out_len).astype(np.int64)
-    out = b"".join(w[b, :out_len[b]].tobytes() for b in range(n))
+    with metrics.span("decode.to_host"):
+        w = metrics.to_host(filled[:n]).numpy().view(np.uint8).reshape(
+            n, -1)
+        produced = metrics.to_host(prod[:n]).numpy()
+        err = metrics.to_host(err[:n]).numpy().astype(np.int64)
+        err |= (produced != out_len).astype(np.int64)
+        out = b"".join(w[b, :out_len[b]].tobytes() for b in range(n))
     return out, err

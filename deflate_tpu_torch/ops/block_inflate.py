@@ -36,6 +36,7 @@ import torch
 from deflate_tpu_torch import _build
 from deflate_tpu_torch.ops import wave_fill as WF
 from deflate_tpu_torch.ops.wave import NM
+from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils import tables as T
 
 # ---- static geometry (pallas_inflate.py:46-75) ---------------------------
@@ -70,8 +71,6 @@ D_INVALID = 15 << 5
 
 MAX_ACTIONS = 65536       # loop-step cap per block (a literal pair or
                           # <= 8 bytes of a match per step)
-
-launches = 0
 
 
 def _litlen_payload(sym):
@@ -446,7 +445,6 @@ def inflate_blocks_kernel(words, start_w, bit0, avail, statics):
     """K6 on the card: same contract as inflate_blocks_plain; the design
     of inflate_blocks_records (decode to literals and match records, then
     K4's pointer-jumping fill), with a scratch of NM records a block."""
-    global launches
     words, start_w, bit0, avail, statics = (
         x.to(torch.int32).contiguous()
         for x in (words, start_w, bit0, avail, statics))
@@ -466,7 +464,7 @@ def inflate_blocks_kernel(words, start_w, bit0, avail, statics):
             status.data_ptr(), recs.data_ptr(), words.shape[0], B,
             _build.stream_ptr(dev))
         _build.check(err, "dt_inflate_blocks")
-        launches += 1
+        metrics.count("kernel.K6")
     return out, status
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from deflate_tpu_torch.ops import huffman as H
+from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils.bits import I32, I64
 from deflate_tpu_torch.utils.tables import (CL_ORDER, MAX_CL_CODE_LEN,
                                             NUM_CL, NUM_LITLEN)
@@ -107,7 +108,7 @@ def header_post(pre, cl_lens: torch.Tensor):
     B = sym.shape[0]
     dev = sym.device
     cl_codes, _ = H.canonical_codes(cl_lens)
-    order = torch.as_tensor(CL_ORDER, dtype=I64, device=dev)
+    order = metrics.to_device(torch.as_tensor(CL_ORDER, dtype=I64), dev)
     perm_lens = cl_lens[:, order]
     ar = torch.arange(NUM_CL, dtype=I32, device=dev)
     last = torch.where(perm_lens > 0, ar, 0).max(1).values
@@ -115,7 +116,8 @@ def header_post(pre, cl_lens: torch.Tensor):
 
     pre_vals = torch.stack([pre["hlit"] - 257, pre["hdist"] - 1,
                             hclen - 4], 1).to(I32)
-    pre_lens = torch.tensor([5, 5, 4], dtype=I32, device=dev).expand(B, 3)
+    pre_lens = metrics.to_device(torch.tensor([5, 5, 4], dtype=I32),
+                                 dev).expand(B, 3)
     cll = torch.where(ar[None, :] < hclen[:, None], 3, 0).to(I32)
 
     s = torch.clamp(sym, 0, NUM_CL - 1).to(I64)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils.bits import I32, I64
 from deflate_tpu_torch.utils.tables import MAX_CODE_LEN
 
@@ -187,7 +188,7 @@ def _finish_lengths(freq, max_len: int, nz, sperm, sorted_leaf_depth,
     bl = (used[:, None, :] & (clamped[:, None, :] == lrange[None, :, None])
           ).sum(2).to(I32)                                 # [B, max_len+1]
     rows = torch.arange(B, device=dev)
-    while bool((ov > 0).any()):
+    while bool(metrics.to_host((ov > 0).any())):
         act = ov > 0
         cand = torch.where((lrange < max_len) & (bl > 0), lrange, -1)
         bits = cand.max(1).values.to(I64)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils.bits import I32, I64, M32, u32, wrap32
 from deflate_tpu_torch.utils.tables import MAX_MATCH, MIN_MATCH
 
@@ -138,56 +139,58 @@ def find_matches(block: torch.Tensor, blen: torch.Tensor,
     [B] per block.  Returns (length, dist) int32 [B, n], zero where no
     match >= 3.
     """
-    B, n = block.shape
-    dev = block.device
-    nw = n // 4
-    wins = _window_words(block, win_words)              # [W, B, n]
-    iw = torch.arange(nw, dtype=I32, device=dev)
-    pos_pm = torch.cat([4 * iw + p for p in range(4)])[None, :]
-    valid = pos_pm < (blen[:, None] - (MIN_MATCH - 1))
-    tf = torch.as_tensor(toofar3, dtype=I32, device=dev).reshape(-1, 1)
+    with metrics.span("lz77.find_matches"):
+        B, n = block.shape
+        dev = block.device
+        nw = n // 4
+        wins = _window_words(block, win_words)              # [W, B, n]
+        iw = torch.arange(nw, dtype=I32, device=dev)
+        pos_pm = torch.cat([4 * iw + p for p in range(4)])[None, :]
+        valid = pos_pm < (blen[:, None] - (MIN_MATCH - 1))
+        tf = metrics.to_device(torch.as_tensor(toofar3, dtype=I32),
+                               dev).reshape(-1, 1)
 
-    def tier(h):
-        return _tier_pass(h, valid, pos_pm, wins, blen, num_cands, tf)
+        def tier(h):
+            return _tier_pass(h, valid, pos_pm, wins, blen, num_cands, tf)
 
-    length, dist = tier(_hash15(u32(wins[0]) & 0x00FFFFFF))
-    for g in tiers:
-        tl, td = tier(_tier_hash(wins, g))
-        better = (tl > length) | ((tl == length) & (td > 0)
-                                  & ((dist == 0) | (td < dist)))
-        length = torch.where(better, tl, length)
-        dist = torch.where(better, td, dist)
-    del wins
+        length, dist = tier(_hash15(u32(wins[0]) & 0x00FFFFFF))
+        for g in tiers:
+            tl, td = tier(_tier_hash(wins, g))
+            better = (tl > length) | ((tl == length) & (td > 0)
+                                      & ((dist == 0) | (td < dist)))
+            length = torch.where(better, tl, length)
+            dist = torch.where(better, td, dist)
+        del wins
 
-    # ---- merge-extension: compose verified window-sized pieces --------
-    cap = 4 * win_words
-    ar = torch.arange(n, dtype=I32, device=dev)[None, :]
-    limit = torch.clamp(torch.clamp(blen[:, None] - ar, max=MAX_MATCH),
-                        min=0)
-    nxt_d = _shift_fwd(dist, cap, 0)
-    nxt_l = _shift_fwd(length, cap, 0)
-    linked = ((length == cap) & (dist > 0) & (nxt_d == dist)
-              & (nxt_l > 0)).to(I32)
-    c = linked
-    alll = linked
-    for r in range(3):
-        s = cap * (1 << r)
-        c = c + alll * _shift_fwd(c, s, 0)
-        alll = alll * _shift_fwd(alll, s, 0)
-    c = torch.clamp(c, max=8)
-    tail = torch.zeros_like(length)
-    for hops in range(9):
-        tl = length if hops == 0 else _shift_fwd(length, cap * hops, 0)
-        td = dist if hops == 0 else _shift_fwd(dist, cap * hops, 0)
-        if hops:
-            tl = torch.where(td == dist, tl, 0)
-        tail = torch.where(c == hops, tl, tail)
-    merged = torch.where(length == cap, cap * c + tail, length)
-    length = torch.minimum(torch.maximum(length, merged), limit)
+        # ---- merge-extension: compose verified window-sized pieces --------
+        cap = 4 * win_words
+        ar = torch.arange(n, dtype=I32, device=dev)[None, :]
+        limit = torch.clamp(torch.clamp(blen[:, None] - ar, max=MAX_MATCH),
+                            min=0)
+        nxt_d = _shift_fwd(dist, cap, 0)
+        nxt_l = _shift_fwd(length, cap, 0)
+        linked = ((length == cap) & (dist > 0) & (nxt_d == dist)
+                  & (nxt_l > 0)).to(I32)
+        c = linked
+        alll = linked
+        for r in range(3):
+            s = cap * (1 << r)
+            c = c + alll * _shift_fwd(c, s, 0)
+            alll = alll * _shift_fwd(alll, s, 0)
+        c = torch.clamp(c, max=8)
+        tail = torch.zeros_like(length)
+        for hops in range(9):
+            tl = length if hops == 0 else _shift_fwd(length, cap * hops, 0)
+            td = dist if hops == 0 else _shift_fwd(dist, cap * hops, 0)
+            if hops:
+                tl = torch.where(td == dist, tl, 0)
+            tail = torch.where(c == hops, tl, tail)
+        merged = torch.where(length == cap, cap * c + tail, length)
+        length = torch.minimum(torch.maximum(length, merged), limit)
 
-    usable = length >= MIN_MATCH
-    return (torch.where(usable, length, 0).to(I32),
-            torch.where(usable, dist, 0).to(I32))
+        usable = length >= MIN_MATCH
+        return (torch.where(usable, length, 0).to(I32),
+                torch.where(usable, dist, 0).to(I32))
 
 
 def lazy_filter(length: torch.Tensor, dist: torch.Tensor):
@@ -204,28 +207,30 @@ def greedy_parse(length: torch.Tensor, blen: torch.Tensor, lazy: bool = True,
     at token starts.  length [B, n], blen [B].  Returns (mark bool [B, n]
     token starts, len_adj int32 [B, n] match length used, 0 for
     literals)."""
-    B, n = length.shape
-    dev = length.device
-    nt = n // tile
-    nxt = _shift_fwd(length, 1, 0)
-    Lt = length.reshape(B, nt, tile)
-    Nx = nxt.reshape(B, nt, tile)
-    base = (torch.arange(nt, dtype=I32, device=dev) * tile)[None, :]
-    bl = blen[:, None]
-    p = base.expand(B, nt).clone()
-    marks, lens = [], []
-    for t in range(tile):
-        pos = base + t
-        emit = (p == pos) & (pos < bl)
-        ml = torch.minimum(torch.clamp(Lt[:, :, t], max=tile - t), bl - pos)
-        use = emit & (ml >= MIN_MATCH)
-        if lazy:
-            nx_t = torch.minimum(torch.clamp(Nx[:, :, t], max=tile - t - 1),
-                                 bl - pos - 1)
-            use = use & ~(nx_t > ml)
-        p = p + torch.where(emit, torch.where(use, ml, 1), 0)
-        marks.append(emit)
-        lens.append(torch.where(use, ml, 0))
-    mark = torch.stack(marks, 2).reshape(B, n)
-    len_adj = torch.stack(lens, 2).reshape(B, n).to(I32)
-    return mark, len_adj
+    with metrics.span("lz77.greedy_parse"):
+        B, n = length.shape
+        dev = length.device
+        nt = n // tile
+        nxt = _shift_fwd(length, 1, 0)
+        Lt = length.reshape(B, nt, tile)
+        Nx = nxt.reshape(B, nt, tile)
+        base = (torch.arange(nt, dtype=I32, device=dev) * tile)[None, :]
+        bl = blen[:, None]
+        p = base.expand(B, nt).clone()
+        marks, lens = [], []
+        for t in range(tile):
+            pos = base + t
+            emit = (p == pos) & (pos < bl)
+            ml = torch.minimum(torch.clamp(Lt[:, :, t], max=tile - t),
+                               bl - pos)
+            use = emit & (ml >= MIN_MATCH)
+            if lazy:
+                nx_t = torch.minimum(
+                    torch.clamp(Nx[:, :, t], max=tile - t - 1), bl - pos - 1)
+                use = use & ~(nx_t > ml)
+            p = p + torch.where(emit, torch.where(use, ml, 1), 0)
+            marks.append(emit)
+            lens.append(torch.where(use, ml, 0))
+        mark = torch.stack(marks, 2).reshape(B, n)
+        len_adj = torch.stack(lens, 2).reshape(B, n).to(I32)
+        return mark, len_adj

@@ -21,13 +21,13 @@ import torch
 
 from deflate_tpu_torch import _build
 from deflate_tpu_torch.ops import bitpack as BP
+from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils.bits import I32, I64, M32, u32, wrap32
 
 NPK = 33 * 1024           # packet lanes per block: 4 preamble + <= 654
                           # header entries + 32768 tokens + 1 EOB, rounded
 OUTW = 9 * 1024           # output words per block (>= encoder WB = 8195)
 TILE = 1024               # output words a CTA of K7 owns
-launches = 0
 
 
 def _check(counts, off, lo, hi):
@@ -119,7 +119,6 @@ def pack_launch(counts, off, lo, hi, out) -> None:
 
 def pack_blocks_kernel(counts, off, lo, hi):
     """K7 on the card: same contract as pack_blocks_tiles."""
-    global launches
     if not (counts.dtype == off.dtype == lo.dtype == hi.dtype == I32
             and counts.is_contiguous() and off.is_contiguous()
             and lo.is_contiguous() and hi.is_contiguous()):
@@ -134,7 +133,7 @@ def pack_blocks_kernel(counts, off, lo, hi):
     out = off.new_empty((counts.shape[0], OUTW))
     if counts.shape[0]:
         pack_launch(counts, off, lo, hi, out)
-        launches += 1
+        metrics.count("kernel.K7")
     return out
 
 

@@ -17,12 +17,12 @@ import torch
 
 from deflate_tpu_torch import _build
 from deflate_tpu_torch.ops import huffman as H
+from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils.bits import I32
 
 NMAX = 512                    # max leaves per tree
 NW = 2 * NMAX                 # output words per tree
 JUMP_ROUNDS = 9               # 2**9 > nz - 2, the deepest internal node
-launches = 0
 
 
 def depths_plain(lw: torch.Tensor, nz: torch.Tensor) -> torch.Tensor:
@@ -140,7 +140,6 @@ def depths_launch(lw: torch.Tensor, nz: torch.Tensor,
 
 def depths_kernel(lw: torch.Tensor, nz: torch.Tensor) -> torch.Tensor:
     """K1 on the card: same contract as depths_plain."""
-    global launches
     if lw.dtype != I32 or nz.dtype != I32 or not lw.is_contiguous() \
             or not nz.is_contiguous():
         lw, nz = lw.to(I32).contiguous(), nz.to(I32).contiguous()
@@ -154,7 +153,7 @@ def depths_kernel(lw: torch.Tensor, nz: torch.Tensor) -> torch.Tensor:
     out = torch.empty((T, NW), dtype=I32, device=dev)
     if T:
         depths_launch(lw, nz, out)
-        launches += 1
+        metrics.count("kernel.K1")
     return out
 
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from deflate_tpu_torch.models import host_inflate as HI
+from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils import tables as T
 from deflate_tpu_torch.utils.bits import I32, exclusive, srl
 
@@ -622,28 +623,30 @@ def _unpack_marks(Mlo, Mhi, W64: int):
 def resolve_litval(len_, r_rel, litmask):
     """Literal byte value = r_rel-th set bit of the 256-bit literal
     membership mask for code length len_; litmask int32 [B, 16, 8]."""
-    B = len_.shape[0]
-    shape = (B,) + (1,) * (len_.ndim - 1)
-    mw = [torch.zeros_like(len_) for _ in range(8)]
-    for l in range(1, 16):
-        hit = len_ == l
+    with metrics.span("wave.resolve_litval"):
+        B = len_.shape[0]
+        shape = (B,) + (1,) * (len_.ndim - 1)
+        mw = [torch.zeros_like(len_) for _ in range(8)]
+        for l in range(1, 16):
+            hit = len_ == l
+            for q in range(8):
+                mw[q] = torch.where(hit, litmask[:, l, q].reshape(shape),
+                                    mw[q])
+        j = r_rel
+        acc = torch.zeros_like(j)
+        found = torch.zeros(j.shape, dtype=torch.bool, device=j.device)
+        word = torch.zeros_like(j)
+        jrel = torch.zeros_like(j)
+        wq = torch.zeros_like(j)
         for q in range(8):
-            mw[q] = torch.where(hit, litmask[:, l, q].reshape(shape), mw[q])
-    j = r_rel
-    acc = torch.zeros_like(j)
-    found = torch.zeros(j.shape, dtype=torch.bool, device=j.device)
-    word = torch.zeros_like(j)
-    jrel = torch.zeros_like(j)
-    wq = torch.zeros_like(j)
-    for q in range(8):
-        pc = popcount32(mw[q])
-        sel = (~found) & (j < acc + pc)
-        word = torch.where(sel, mw[q], word)
-        jrel = torch.where(sel, j - acc, jrel)
-        wq = torch.where(sel, q, wq)
-        found = found | sel
-        acc = acc + pc
-    return (wq << 5) + select_bit32(word, jrel)
+            pc = popcount32(mw[q])
+            sel = (~found) & (j < acc + pc)
+            word = torch.where(sel, mw[q], word)
+            jrel = torch.where(sel, j - acc, jrel)
+            wq = torch.where(sel, q, wq)
+            found = found | sel
+            acc = acc + pc
+        return (wq << 5) + select_bit32(word, jrel)
 
 
 def merge_match_runs(rec0, rec1):
@@ -652,41 +655,42 @@ def merge_match_runs(rec0, rec1):
     pieces), then re-compact with kernel K3.  rec0 = opos | len3<<16
     (len3 grows to 16 bits), rec1 = dist.  Returns (rec0, rec1,
     nmatch)."""
-    from deflate_tpu_torch.ops.wave_route import route
+    with metrics.span("wave.merge_match_runs"):
+        from deflate_tpu_torch.ops.wave_route import route
 
-    B = rec0.shape[0]
-    span = (rec0 >= 0).to(I32)
-    L0, D = rec0, rec1
-    for lvl in range(8):
-        w = 1 << lvl
-        l0 = L0.reshape(B, -1, 2 * w).clone()
-        dd = D.reshape(B, -1, 2 * w).clone()
-        sp = span.reshape(B, -1, 2 * w).clone()
-        lef0, rig0 = l0[:, :, 0].clone(), l0[:, :, w].clone()
-        can = ((sp[:, :, 0] == w) & (sp[:, :, w] > 0)
-               & (dd[:, :, 0] == dd[:, :, w]) & (dd[:, :, 0] > 0)
-               & ((rig0 & 0xFFFF)
-                  == (lef0 & 0xFFFF) + srl(lef0, 16) + 3))
-        mlen3 = srl(lef0, 16) + srl(rig0, 16) + 3
-        l0[:, :, 0] = torch.where(can, (lef0 & 0xFFFF) | (mlen3 << 16),
-                                  lef0)
-        l0[:, :, w] = torch.where(can, -1, rig0)
-        dd[:, :, w] = torch.where(can, 0, dd[:, :, w])
-        sp0 = sp[:, :, 0].clone()
-        sp[:, :, 0] = torch.where(can, sp0 + sp[:, :, w], sp0)
-        sp[:, :, w] = torch.where(can, 0, sp[:, :, w])
-        L0 = l0.reshape(B, -1)
-        D = dd.reshape(B, -1)
-        span = sp.reshape(B, -1)
-    lv = (L0 >= 0).to(I32)
-    rank = exclusive(lv, 1)
-    lane = torch.arange(L0.shape[1], dtype=I32, device=L0.device)[None, :]
-    dmv = torch.where(lv > 0, lane - rank, -1)
-    (L0, D), dmo = route([L0, D], dmv, int(L0.shape[1] - 1).bit_length(),
-                         left=True)
-    L0 = torch.where(dmo == 0, L0, -1)
-    D = torch.where(dmo == 0, D, 0)
-    return L0, D, lv.sum(1).to(I32)
+        B = rec0.shape[0]
+        span = (rec0 >= 0).to(I32)
+        L0, D = rec0, rec1
+        for lvl in range(8):
+            w = 1 << lvl
+            l0 = L0.reshape(B, -1, 2 * w).clone()
+            dd = D.reshape(B, -1, 2 * w).clone()
+            sp = span.reshape(B, -1, 2 * w).clone()
+            lef0, rig0 = l0[:, :, 0].clone(), l0[:, :, w].clone()
+            can = ((sp[:, :, 0] == w) & (sp[:, :, w] > 0)
+                   & (dd[:, :, 0] == dd[:, :, w]) & (dd[:, :, 0] > 0)
+                   & ((rig0 & 0xFFFF)
+                      == (lef0 & 0xFFFF) + srl(lef0, 16) + 3))
+            mlen3 = srl(lef0, 16) + srl(rig0, 16) + 3
+            l0[:, :, 0] = torch.where(can, (lef0 & 0xFFFF) | (mlen3 << 16),
+                                      lef0)
+            l0[:, :, w] = torch.where(can, -1, rig0)
+            dd[:, :, w] = torch.where(can, 0, dd[:, :, w])
+            sp0 = sp[:, :, 0].clone()
+            sp[:, :, 0] = torch.where(can, sp0 + sp[:, :, w], sp0)
+            sp[:, :, w] = torch.where(can, 0, sp[:, :, w])
+            L0 = l0.reshape(B, -1)
+            D = dd.reshape(B, -1)
+            span = sp.reshape(B, -1)
+        lv = (L0 >= 0).to(I32)
+        rank = exclusive(lv, 1)
+        lane = torch.arange(L0.shape[1], dtype=I32, device=L0.device)[None, :]
+        dmv = torch.where(lv > 0, lane - rank, -1)
+        (L0, D), dmo = route([L0, D], dmv, int(L0.shape[1] - 1).bit_length(),
+                             left=True)
+        L0 = torch.where(dmo == 0, L0, -1)
+        D = torch.where(dmo == 0, D, 0)
+        return L0, D, lv.sum(1).to(I32)
 
 
 def wave_decode(nwords, hints, out_expect, md, W64: int, stop_bit=None,
@@ -706,90 +710,91 @@ def wave_decode(nwords, hints, out_expect, md, W64: int, stop_bit=None,
     Returns (litwords int32 [B, ND//4] — literal bytes placed, match
     bytes zero; rec0, rec1 [B, NM] match records (opos | len3<<16,
     dist); nmatch [B]; produced [B]; err [B] int32)."""
-    from deflate_tpu_torch.ops import wave_stagea as WS
-    from deflate_tpu_torch.ops.wave_route import route
+    with metrics.span("decode.stages"):
+        from deflate_tpu_torch.ops import wave_stagea as WS
+        from deflate_tpu_torch.ops.wave_route import route
 
-    B = nwords.shape[0]
-    dev = nwords.device
-    fused = bool(int(os.environ.get("DT_STAGEAB_PALLAS", "1")))
-    mark = WS.decode_mark if fused else WS.decode_mark_split
-    A0c, P1c, sums = mark(nwords, hints, stack_md(md), W64, stop_bit,
-                          maxl, maxd)
-    sstart = exclusive(sums["sum_cnt"], 1)
-    produced = sums["sum_emit"].sum(1).to(I32)
-    nsym = sstart[:, -1] + sums["sum_cnt"][:, -1]
-    nmatch = sums["sum_match"].sum(1).to(I32)
+        B = nwords.shape[0]
+        dev = nwords.device
+        fused = bool(int(os.environ.get("DT_STAGEAB_PALLAS", "1")))
+        mark = WS.decode_mark if fused else WS.decode_mark_split
+        A0c, P1c, sums = mark(nwords, hints, stack_md(md), W64, stop_bit,
+                              maxl, maxd)
+        sstart = exclusive(sums["sum_cnt"], 1)
+        produced = sums["sum_emit"].sum(1).to(I32)
+        nsym = sstart[:, -1] + sums["sum_cnt"][:, -1]
+        nmatch = sums["sum_match"].sum(1).to(I32)
 
-    # ---- chain validation: carry of chunk w-1 must equal hint of w ----
-    h = hints
-    elo = torch.where(h < 32, 1 << torch.clamp(h, 0, 31), 0)
-    ehi = torch.where((h >= 32) & (h < 64),
-                      1 << torch.clamp(h - 32, 0, 31), 0)
-    zcol = torch.zeros((B, 1), dtype=I32, device=dev)
-    cin_lo = torch.cat([zcol, sums["Clo"][:, :-1]], 1)
-    cin_hi = torch.cat([zcol, sums["Chi"][:, :-1]], 1)
-    mism = (cin_lo != elo) | (cin_hi != ehi)
-    err = mism[:, 1:].any(1)
-    err = err | (h[:, 0] != 0)                        # chain starts at 0
-    err = err | (sums["sum_inv"].sum(1) > 0)
-    err = err | (sums["sum_eob"].sum(1) != 1)
-    err = err | (produced != out_expect)
-    err = err | (nsym > NS)
-    err = err | (nmatch > NM)
-    err = (err | (sums["sum_cnt"] > CCAP).any(1)).to(I32)
+        # ---- chain validation: carry of chunk w-1 must equal hint of w ----
+        h = hints
+        elo = torch.where(h < 32, 1 << torch.clamp(h, 0, 31), 0)
+        ehi = torch.where((h >= 32) & (h < 64),
+                          1 << torch.clamp(h - 32, 0, 31), 0)
+        zcol = torch.zeros((B, 1), dtype=I32, device=dev)
+        cin_lo = torch.cat([zcol, sums["Clo"][:, :-1]], 1)
+        cin_hi = torch.cat([zcol, sums["Chi"][:, :-1]], 1)
+        mism = (cin_lo != elo) | (cin_hi != ehi)
+        err = mism[:, 1:].any(1)
+        err = err | (h[:, 0] != 0)                        # chain starts at 0
+        err = err | (sums["sum_inv"].sum(1) > 0)
+        err = err | (sums["sum_eob"].sum(1) != 1)
+        err = err | (produced != out_expect)
+        err = err | (nsym > NS)
+        err = err | (nmatch > NM)
+        err = (err | (sums["sum_cnt"] > CCAP).any(1)).to(I32)
 
-    # ---- stage D: route chunk-compact symbol groups to dense slots ---
-    # chunk w's cnt[w] symbols sit at lanes w*CCAP.. of the w-major
-    # view; the group moves left by w*CCAP - sstart[w]
-    L = W64 * CCAP
+        # ---- stage D: route chunk-compact symbol groups to dense slots ---
+        # chunk w's cnt[w] symbols sit at lanes w*CCAP.. of the w-major
+        # view; the group moves left by w*CCAP - sstart[w]
+        L = W64 * CCAP
 
-    def flatc(a):
-        return a.transpose(1, 2).reshape(B, L)
+        def flatc(a):
+            return a.transpose(1, 2).reshape(B, L)
 
-    cnt_rep = torch.repeat_interleave(sums["sum_cnt"], CCAP, dim=1)
-    dval = (torch.arange(W64, dtype=I32, device=dev) * CCAP)[None, :] \
-        - sstart
-    delta = torch.repeat_interleave(dval, CCAP, dim=1)
-    j_lane = torch.arange(CCAP, dtype=I32, device=dev).repeat(W64)[None, :]
-    delta = torch.where(j_lane < cnt_rep, delta, -1)
-    (P0, P1f), dout = route([flatc(A0c), flatc(P1c)], delta,
-                            int(L - 1).bit_length(), left=True)
-    if L < NS:
-        pad = NS - L
-        P0 = torch.nn.functional.pad(P0, (0, pad))
-        P1f = torch.nn.functional.pad(P1f, (0, pad))
-        dout = torch.nn.functional.pad(dout, (0, pad), value=-1)
-    P0, P1f, dout = P0[:, :NS], P1f[:, :NS], dout[:, :NS]
-    valid = dout == 0
+        cnt_rep = torch.repeat_interleave(sums["sum_cnt"], CCAP, dim=1)
+        dval = (torch.arange(W64, dtype=I32, device=dev) * CCAP)[None, :] \
+            - sstart
+        delta = torch.repeat_interleave(dval, CCAP, dim=1)
+        j_lane = torch.arange(CCAP, dtype=I32, device=dev).repeat(W64)[None, :]
+        delta = torch.where(j_lane < cnt_rep, delta, -1)
+        (P0, P1f), dout = route([flatc(A0c), flatc(P1c)], delta,
+                                int(L - 1).bit_length(), left=True)
+        if L < NS:
+            pad = NS - L
+            P0 = torch.nn.functional.pad(P0, (0, pad))
+            P1f = torch.nn.functional.pad(P1f, (0, pad))
+            dout = torch.nn.functional.pad(dout, (0, pad), value=-1)
+        P0, P1f, dout = P0[:, :NS], P1f[:, :NS], dout[:, :NS]
+        valid = dout == 0
 
-    # ---- stage E: unpack + literal values at symbol domain -----------
-    emit_s = torch.where(valid, srl(P0, 6) & 511, 0)
-    cls = srl(P0, 15) & 3
-    X = srl(P0, 17) & 511
-    len_s = srl(P0, 26) & 15
-    is_lit_s = valid & (cls == 0)
-    is_m_s = valid & (cls == 1)
-    opos = exclusive(emit_s, 1)
-    mi = exclusive(is_m_s.to(I32), 1)
-    litval = resolve_litval(len_s, X, md["l_litmask"].to(I32))
+        # ---- stage E: unpack + literal values at symbol domain -----------
+        emit_s = torch.where(valid, srl(P0, 6) & 511, 0)
+        cls = srl(P0, 15) & 3
+        X = srl(P0, 17) & 511
+        len_s = srl(P0, 26) & 15
+        is_lit_s = valid & (cls == 0)
+        is_m_s = valid & (cls == 1)
+        opos = exclusive(emit_s, 1)
+        mi = exclusive(is_m_s.to(I32), 1)
+        litval = resolve_litval(len_s, X, md["l_litmask"].to(I32))
 
-    # ---- match records: compact to [B, NM] ---------------------------
-    j_sym = torch.arange(NS, dtype=I32, device=dev)[None, :]
-    d4 = torch.where(is_m_s, j_sym - mi, -1)
-    (rec0, rec1), d4o = route([opos | (X << 16), P1f], d4,
-                              int(NS - 1).bit_length(), left=True)
-    rec0 = torch.where(d4o[:, :NM] == 0, rec0[:, :NM], -1)
-    rec1 = torch.where(d4o[:, :NM] == 0, rec1[:, :NM], 0)
-    rec0, rec1, nmatch = merge_match_runs(rec0, rec1)
+        # ---- match records: compact to [B, NM] ---------------------------
+        j_sym = torch.arange(NS, dtype=I32, device=dev)[None, :]
+        d4 = torch.where(is_m_s, j_sym - mi, -1)
+        (rec0, rec1), d4o = route([opos | (X << 16), P1f], d4,
+                                  int(NS - 1).bit_length(), left=True)
+        rec0 = torch.where(d4o[:, :NM] == 0, rec0[:, :NM], -1)
+        rec1 = torch.where(d4o[:, :NM] == 0, rec1[:, :NM], 0)
+        rec0, rec1, nmatch = merge_match_runs(rec0, rec1)
 
-    # ---- stage F: place literal bytes at output offsets --------------
-    d2 = torch.where(is_lit_s, opos - j_sym, -1)
-    (vout,), d2o = route([litval], d2, int(NS - 1).bit_length(),
-                         left=False)
-    lb = torch.where(d2o == 0, vout, 0)[:, :ND].reshape(B, ND // 4, 4)
-    litwords = (lb[:, :, 0] | (lb[:, :, 1] << 8)
-                | (lb[:, :, 2] << 16) | (lb[:, :, 3] << 24))
-    return litwords, rec0, rec1, nmatch, produced, err
+        # ---- stage F: place literal bytes at output offsets --------------
+        d2 = torch.where(is_lit_s, opos - j_sym, -1)
+        (vout,), d2o = route([litval], d2, int(NS - 1).bit_length(),
+                             left=False)
+        lb = torch.where(d2o == 0, vout, 0)[:, :ND].reshape(B, ND // 4, 4)
+        litwords = (lb[:, :, 0] | (lb[:, :, 1] << 8)
+                    | (lb[:, :, 2] << 16) | (lb[:, :, 3] << 24))
+        return litwords, rec0, rec1, nmatch, produced, err
 
 
 # ====================== host reference hint walk ==========================

@@ -35,11 +35,10 @@ import torch
 
 from deflate_tpu_torch import _build
 from deflate_tpu_torch.ops.wave import ND, NM
+from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils.bits import I32, srl
 
 OW = ND // 4                 # output words per block
-launches = 0                 # K4 launches
-hist_launches = 0            # K5 launches (wrapper calls)
 HIST_MAX_ROUNDS = 64         # K5's jump-round flags (csrc/wave_fill_hist.cu)
 
 
@@ -127,7 +126,6 @@ def fill_matches_kernel(litwords, recs, nmatch):
     """K4 on the card: the result of fill_matches_plain for every row
     whose records do not overlap and come in order of opos (the contract
     of csrc/fill_block.cuh, which every decoder plan meets)."""
-    global launches
     litwords = litwords.to(I32).contiguous()
     recs = recs.to(I32).contiguous()
     nmatch = nmatch.to(I32).contiguous()
@@ -145,7 +143,7 @@ def fill_matches_kernel(litwords, recs, nmatch):
             litwords.data_ptr(), recs.data_ptr(), nmatch.data_ptr(),
             out.data_ptr(), B, _build.stream_ptr(dev))
         _build.check(err, "dt_fill_matches")
-        launches += 1
+        metrics.count("kernel.K4")
     return out
 
 
@@ -244,7 +242,6 @@ def fill_matches_hist_jump(litwords, recs, nmatch, sizes):
 
 def fill_matches_hist_kernel(litwords, recs, nmatch, sizes):
     """K5 on the card: same contract as fill_matches_hist_plain."""
-    global hist_launches
     litwords = litwords.to(I32).contiguous()
     recs = recs.to(I32).contiguous()
     nmatch = nmatch.to(I32).contiguous()
@@ -268,7 +265,7 @@ def fill_matches_hist_kernel(litwords, recs, nmatch, sizes):
             sizes.data_ptr(), out.data_ptr(), ptr.data_ptr(),
             starts.data_ptr(), flags.data_ptr(), B, _build.stream_ptr(dev))
         _build.check(err, "dt_fill_matches_hist")
-        hist_launches += 1
+        metrics.count("kernel.K5")
     return out
 
 

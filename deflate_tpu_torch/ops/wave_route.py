@@ -17,11 +17,11 @@ import torch
 
 from deflate_tpu_torch import _build
 from deflate_tpu_torch.ops import wave as W
+from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils.bits import I32
 
 MAXP = 3                     # payloads per call
 TILE = 1024                  # slots per CTA (csrc/wave_route.cu)
-launches = 0
 _dt_route = None             # the loaded entry point
 
 
@@ -57,7 +57,6 @@ def route_kernel(payloads, delta, rounds: int, left: bool = True):
     [B, L] rows with unit column stride (any row stride); delta is
     contiguous int32 [B, L].  One allocation holds the P outputs, dout
     and the kernel's scratch; the outputs and dout are views of it."""
-    global launches
     dev = delta.device
     B, L = delta.shape
     P = len(payloads)
@@ -79,7 +78,7 @@ def route_kernel(payloads, delta, rounds: int, left: bool = True):
         base, plane = buf.data_ptr(), 4 * B * L
         launch(payloads, delta, [base + k * plane for k in range(P)],
                base + P * plane, base + 4 * n, rounds, left)
-        launches += 1
+        metrics.count("kernel.K3")
     return outs, dout
 
 

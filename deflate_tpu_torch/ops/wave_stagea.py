@@ -32,6 +32,7 @@ import torch
 
 from deflate_tpu_torch import _build
 from deflate_tpu_torch.ops import wave as W
+from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils.bits import I32, srl
 
 SUM_KEYS = ("Mlo", "Mhi", "Clo", "Chi", "sum_emit", "sum_cnt",
@@ -41,8 +42,6 @@ KD = 10                      # distance table index bits
 TABLE_WORDS = (1 << KL) + (1 << KD)   # one block's tables, int32
 SLOW = -1                    # table entry: decode the position in full
 MATCH = -(1 << 31)           # bit 31 of a litlen entry: a match
-launches = 0                 # K2
-positions_launches = 0       # K8
 
 
 # ====================== the table-driven decode (torch form) ==============
@@ -258,7 +257,6 @@ def mark_launch(nwords, hints, mds, stop, a0c, p1c, sums, tables, W64: int,
 def decode_mark_kernel(nwords, hints, mds, W64: int, stop_bit=None,
                        maxl: int = 15, maxd: int = 15):
     """K2 on the card: same contract as decode_mark_plain."""
-    global launches
     nwords = nwords.to(I32).contiguous()
     hints = hints.to(I32).contiguous()
     mds = mds.to(I32).contiguous()
@@ -287,7 +285,7 @@ def decode_mark_kernel(nwords, hints, mds, W64: int, stop_bit=None,
     if B:
         mark_launch(nwords, hints, mds, stop, A0c, P1c, sums, tables, W64,
                     maxl, maxd)
-        launches += 1
+        metrics.count("kernel.K2")
     return A0c, P1c, sums
 
 
@@ -315,7 +313,6 @@ def decode_positions_plain(nwords, mds, W64: int):
 
 def decode_positions_kernel(nwords, mds, W64: int):
     """K8 on the card: same contract as decode_positions_plain."""
-    global positions_launches
     nwords = nwords.to(I32).contiguous()
     md7 = mds[:, :len(W.MD_KEYS)].to(I32).contiguous()
     dev = _build.require_cuda(nwords, md7)
@@ -335,7 +332,7 @@ def decode_positions_kernel(nwords, mds, W64: int):
             A0.data_ptr(), P1.data_ptr(), B, W64, TABLE_WORDS,
             _build.stream_ptr(dev))
         _build.check(err, "dt_decode_positions")
-        positions_launches += 1
+        metrics.count("kernel.K8")
     return A0, P1
 
 

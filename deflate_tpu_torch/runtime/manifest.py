@@ -27,6 +27,7 @@ import json
 
 import numpy as np
 
+from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils.tables import BLOCK_SIZE
 
 VERSION = 3
@@ -218,12 +219,13 @@ def manifest_of(words, total, offset, bits, harr, blens):
     from deflate_tpu_torch.ops.wave import HINT_NONE
     from deflate_tpu_torch.runtime import stitch as S
 
-    stream = S.words_to_bytes(words.cpu().numpy(), int(total))
-    offset = offset.cpu().numpy()
-    bits = bits.cpu().numpy()
+    stream = S.words_to_bytes(metrics.to_host(words).numpy(),
+                              int(metrics.to_host(total)))
+    offset = metrics.to_host(offset).numpy()
+    bits = metrics.to_host(bits).numpy()
     hlist = None
     if harr is not None:
-        harr = harr.cpu().numpy().astype(np.uint8)
+        harr = metrics.to_host(harr).numpy().astype(np.uint8)
         hlist = []
         for i in range(len(blens)):
             h = harr[i, :int(-(-bits[i] // 64))]
@@ -249,12 +251,17 @@ def compress_with_manifest(data, level: int = 2, hints: bool = True,
     from deflate_tpu_torch.models import encoder as E
 
     dev = torch_device(device)
-    blocks, blens = split_blocks(data)
-    n = len(blens)
-    out = E._encode(
-        torch.from_numpy(blocks).to(dev), torch.from_numpy(blens).to(dev),
-        torch.ones(n, dtype=torch.bool, device=dev), n - 1, level, 0, hints)
-    return manifest_of(*out, blens)
+    with metrics.span("encode"):
+        with metrics.span("encode.split"):
+            blocks, blens = split_blocks(data)
+            n = len(blens)
+            blocks_d = metrics.to_device(blocks, dev)
+            blens_d = metrics.to_device(blens, dev)
+        out = E._encode(blocks_d, blens_d,
+                        torch.ones(n, dtype=torch.bool, device=dev), n - 1,
+                        level, 0, hints)
+        with metrics.span("encode.to_host"):
+            return manifest_of(*out, blens)
 
 
 def decode_all(stream: bytes, man: Manifest, device="cuda") -> bytes:
@@ -267,6 +274,11 @@ def decode_all(stream: bytes, man: Manifest, device="cuda") -> bytes:
     blocks; if it flags any, the whole stream decodes on the host.
     device=None decodes every block on the host (the reference's
     device=False)."""
+    with metrics.span("decode"):
+        return _decode_all(stream, man, device)
+
+
+def _decode_all(stream: bytes, man: Manifest, device) -> bytes:
     from deflate_tpu_torch.models import host_inflate as HI
 
     if device is not None and man.hints is not None:
@@ -276,15 +288,22 @@ def decode_all(stream: bytes, man: Manifest, device="cuda") -> bytes:
         sizes = [b[2] for b in man.blocks]
         words, produced, err = WD.inflate_wave_device(
             stream, offs, sizes, man.hint_array(), device=device)
-        w = np.asarray(words).view(np.uint8).reshape(len(man.blocks), -1)
-        parts = []
-        for i, (bit_off, _, olen) in enumerate(man.blocks):
-            if err[i] or produced[i] != olen:       # per-block fallback
-                parts.append(HI.inflate_raw(stream, start_bit=bit_off,
-                                            single_block=True))
-            else:
-                parts.append(w[i, :olen].tobytes())
-        return b"".join(parts)
+        bad = [i for i, (_, _, olen) in enumerate(man.blocks)
+               if err[i] or produced[i] != olen]
+        redo = {}
+        if bad:                                     # per-block fallback
+            metrics.count("decode.blocks_fallback", len(bad))
+            with metrics.span("decode.fallback"):
+                for i in bad:
+                    redo[i] = HI.inflate_raw(
+                        stream, start_bit=man.blocks[i][0],
+                        single_block=True)
+        with metrics.span("decode.to_host"):
+            w = np.asarray(words).view(np.uint8).reshape(len(man.blocks),
+                                                         -1)
+            return b"".join(
+                redo[i] if i in redo else w[i, :olen].tobytes()
+                for i, (_, _, olen) in enumerate(man.blocks))
     if device is not None:
         from deflate_tpu_torch.models import block_decoder as BD
 
@@ -292,10 +311,12 @@ def decode_all(stream: bytes, man: Manifest, device="cuda") -> bytes:
             return BD.inflate_manifest(stream, man.blocks, device=device)
         except BD.PallasDecodeError:
             pass
-    out = bytearray()
-    for bit_off, _, _ in man.blocks:
-        out += HI.inflate_raw(stream, start_bit=bit_off, single_block=True)
-    return bytes(out)
+    with metrics.span("decode.fallback"):
+        out = bytearray()
+        for bit_off, _, _ in man.blocks:
+            out += HI.inflate_raw(stream, start_bit=bit_off,
+                                  single_block=True)
+        return bytes(out)
 
 
 def decode_range(stream: bytes, man: Manifest, start: int, end: int) -> bytes:

@@ -182,16 +182,17 @@ def test_run_report_matches_reference():
 
 
 def test_trace_and_profile_to(tmp_path):
-    """profile_to writes a Chrome trace holding trace's named ranges."""
+    """profile_to writes a Chrome trace holding the program's spans as
+    named ranges; a span outside it records nothing."""
     import json
 
-    from deflate_tpu_torch.utils.metrics import profile_to, trace
+    from deflate_tpu_torch.utils.metrics import SPAN_PREFIX, profile_to, span
 
     with profile_to(str(tmp_path)):
-        with trace("dt_region"):
+        with span("region"):
             torch.arange(1000).sum()
-        with trace("dt_off", enabled=False):
-            torch.arange(10).sum()
+    with span("off"):
+        torch.arange(10).sum()
     events = json.loads((tmp_path / "trace.json").read_text())
     names = {e.get("name") for e in events["traceEvents"]}
-    assert "dt_region" in names and "dt_off" not in names
+    assert SPAN_PREFIX + "region" in names and SPAN_PREFIX + "off" not in names
