@@ -7,8 +7,8 @@ source, all at once) and the native host library (g++), then drives
 eight paths on an 8 MiB mixed corpus (256 blocks of 32 KiB), each with
 every kernel count set to 0 just before it and read just after:
 
-  A  level-2 ``compress_with_manifest``, then hinted ``decode_all`` on
-     the card (K1-K4);
+  A  level-2 ``compress_with_manifest`` (K9, K1), then hinted
+     ``decode_all`` on the card (K2-K4);
   B  a foreign stream (python zlib, level 6, raw) through
      ``decompress(device=cuda, force_device=True)``: the skeleton walk,
      then the wavefront decoder with history (K2, K3, K5); and the same
@@ -17,7 +17,7 @@ every kernel count set to 0 just before it and read just after:
   C  ``compress_with_manifest(hints=False)``, then ``decode_all`` on the
      card: every block through the full block inflate (K6);
   D  level 3: ``compress_with_manifest(level=3)`` (the default merge
-     emission, K1), then ``encoder.encode_batch_with_hints(level=3,
+     emission, K9 at tile 2048, K1), then ``encoder.encode_batch_with_hints(level=3,
      pack="kernel")`` on the same blocks (packet fusion, compaction on
      K3, placement on K7); stream, manifest and hints must be identical;
   E  hinted ``decode_all`` of D's stream with DT_STAGEAB_PALLAS=0: stage
@@ -30,7 +30,7 @@ every kernel count set to 0 just before it and read just after:
      configurations flag them, the only calls of the host decoder) and
      wrong out_size values — then phase A's stream through
      ``decoder.inflate_device`` (256 blocks, max_blocks 512);
-  G  the public encode entry points (K1): ``compress(data, 2)``, in
+  G  the public encode entry points (K9, K1): ``compress(data, 2)``, in
      segments of 64 blocks stitched on the host, must equal phase A's
      stream; ``compress(stats=...)`` (a second, size-only planning pass,
      K1 again); ``compress_many`` of the corpus's quarters must equal
@@ -67,7 +67,10 @@ position; K2 (on every call of phases A and B), K4, K5 (on every row),
 K7 and K8 (on every position) are also held against the torch forms of
 their designs (K4's rows must hold records in order without overlap,
 K7's offsets must not decrease), and K1 on every call of phases A, D
-and G against its plain version and the torch form of its design; K6's result
+and G against its plain version and the torch form of its design; K9
+on phase A's call against its plain version and on every call of phases
+A, D and G against the torch form of its design (greedy_parse_walk), and
+on phase D's tile-2048 call against the plain version too; K6's result
 adds its time on each corpus quarter's 64 blocks alone (quarter_ms).
 Phase H's calls of K1-K4 are held the same way: K1's and K3's in full
 against their plain versions, K2's and K4's on their first rows against
@@ -288,7 +291,7 @@ def main() -> int:
     from deflate_tpu_torch.models import host_inflate as HI
     from deflate_tpu_torch.models import wave_decoder as WD
     from deflate_tpu_torch.models import encoder as E
-    from deflate_tpu_torch.ops import block_inflate, pack, tree, \
+    from deflate_tpu_torch.ops import block_inflate, lz77, pack, tree, \
         wave, wave_fill, wave_route, wave_stagea
     from deflate_tpu_torch.runtime import manifest as M
     from deflate_tpu_torch.utils import metrics
@@ -322,6 +325,7 @@ def main() -> int:
         "K6": (block_inflate, "inflate_blocks_kernel"),
         "K7": (pack, "pack_blocks_kernel"),
         "K8": (wave_stagea, "decode_positions_kernel"),
+        "K9": (lz77, "greedy_parse_kernel"),
     }
 
     def launched_since_reset(k: str) -> int:
@@ -361,7 +365,7 @@ def main() -> int:
 
     launches, calls = {}, {}
 
-    # ---- phase A: encode, then hinted device decode (K1-K4) -------------
+    # ---- phase A: encode, then hinted device decode (K1-K4, K9) --------
     def phase_a():
         s, m = M.compress_with_manifest(data, level=2, device=dev)
         torch.cuda.synchronize()
@@ -370,7 +374,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     (stream, man, out, t_enc), _, la, ca = run_phase(
-        ["K1", "K2", "K3", "K4"], phase_a)
+        ["K1", "K2", "K3", "K4", "K9"], phase_a)
     t_dec = time.perf_counter() - t_enc
     t_enc -= t_start
     launches.update(la)
@@ -476,7 +480,8 @@ def main() -> int:
     ws3, wm3 = M.compress_with_manifest(data, level=3, device=dev)
     require(encode_l3("kernel")[0] == ws3, "warm-up level-3 kernel pack")
     (s3, m3), t_d, ld_merge, cd_merge = run_phase(
-        ["K1"], lambda: M.compress_with_manifest(data, level=3, device=dev))
+        ["K1", "K9"],
+        lambda: M.compress_with_manifest(data, level=3, device=dev))
     (ks3, km3), t_dk, ld, cd = run_phase(["K1", "K3", "K7"],
                                          lambda: encode_l3("kernel"))
     k1_d = cd_merge["K1"] + cd["K1"]      # K1's calls of both backends
@@ -489,7 +494,8 @@ def main() -> int:
             "level-3 offsets or hints of the two backends differ")
     say(f"D level-3 encode: {len(data)} bytes -> {len(s3)} bytes (ratio "
         f"{len(s3) / len(data):.4f}); merge backend {t_d:.3f} s = "
-        f"{mb / t_d:.2f} MB/s (K1 {ld_merge['K1']}); kernel pack "
+        f"{mb / t_d:.2f} MB/s (K1 {ld_merge['K1']}, K9 {ld_merge['K9']}); "
+        f"kernel pack "
         f"{t_dk:.3f} s = {mb / t_dk:.2f} MB/s (K1 {ld['K1']}, K3 "
         f"{ld['K3']}, K7 {ld['K7']} launches); streams, offsets and "
         f"hints identical")
@@ -589,16 +595,16 @@ def main() -> int:
 
     run_phase([], phase_f)
 
-    # ---- phase G: the public encode entry points (K1) ------------------
+    # ---- phase G: the public encode entry points (K1, K9) -------------
     # compress in segments of 64 blocks, stitched on the host, must give
     # phase A's one-batch stream; stats plans every block a second time
     require(D.compress(data, 2, device=dev) == stream, "warm-up compress")
     g_stream, t_g, lg, cg = run_phase(
-        ["K1"], lambda: D.compress(data, 2, device=dev))
+        ["K1", "K9"], lambda: D.compress(data, 2, device=dev))
     require(g_stream == stream, "compress differs from phase A's stream")
     st_g = {}
     _, _, lg_stats, cg_stats = run_phase(
-        ["K1"], lambda: D.compress(data, 2, stats=st_g, device=dev))
+        ["K1", "K9"], lambda: D.compress(data, 2, stats=st_g, device=dev))
     # the report's histogram against the BTYPE bits of phase A's stream
     # at its manifest's block offsets
     btypes = {"stored": 0, "fixed": 0, "dynamic": 0}
@@ -614,7 +620,7 @@ def main() -> int:
                 for i in range(4)]
     want_q = [D.compress(q, 2, device=dev) for q in quarters]
     many, t_many, lg_many, cg_many = run_phase(
-        ["K1"], lambda: D.compress_many(quarters, 2, device=dev))
+        ["K1", "K9"], lambda: D.compress_many(quarters, 2, device=dev))
     require(many == want_q, "compress_many differs from compress per quarter")
     z = D.compress_zlib(data, 2, device=dev)
     g = D.compress_gzip(data, 2, device=dev)
@@ -630,7 +636,7 @@ def main() -> int:
         with open(src, "wb") as f:
             f.write(data)
         _, t_file, lg_file, cg_file = run_phase(
-            ["K1"], lambda: D.compress_file(src, dst, 2, device=dev))
+            ["K1", "K9"], lambda: D.compress_file(src, dst, 2, device=dev))
         with open(dst, "rb") as f:
             require(f.read() == stream, "compress_file differs from compress")
         with open(src, "wb") as f:
@@ -654,13 +660,17 @@ def main() -> int:
                   "compress_many": lg_many["K1"],
                   "compress_file": lg_file["K1"]}
     k1_g = [c for cc in (cg, cg_stats, cg_many, cg_file) for c in cc["K1"]]
+    launches_g9 = {"compress": lg["K9"], "stats": lg_stats["K9"],
+                   "compress_many": lg_many["K9"],
+                   "compress_file": lg_file["K9"]}
+    k9_g = [c for cc in (cg, cg_stats, cg_many, cg_file) for c in cc["K9"]]
     say(f"G compress: {len(data)} bytes -> {len(g_stream)} bytes, "
         f"identical to phase A's stream, in {t_g:.3f} s = "
         f"{mb / t_g:.2f} MB/s; stats {st_g['block_types']}")
     say(f"G compress_many of 4 quarters: {t_many:.3f} s = "
         f"{mb / t_many:.2f} MB/s; compress_file (chunk_blocks 256): "
         f"{t_file:.3f} s = {mb / t_file:.2f} MB/s; K1 launches "
-        f"{launches_g}")
+        f"{launches_g}, K9 launches {launches_g9}")
     say(f"G containers round-trip through python zlib and gzip; "
         f"two-member gzip decoded; decompress_file of a "
         f"{len(prefix)}-byte prefix in {t_dfile:.3f} s (host); "
@@ -1155,6 +1165,39 @@ def main() -> int:
     log(f"K8: {results[-1]['ms']:.4f} ms over {k8_positions} positions, "
         f"{results[-1]['ns_per_position']:.5f} ns a position, per launch "
         f"{results[-1]['per_launch_ms']} [{card}]")
+
+    k9 = calls["K9"]
+    require(len(k9) == 1 and len(cd_merge["K9"]) == 1,
+            f"K9 ran {len(k9)} times in phase A, {len(cd_merge['K9'])} in D")
+    k9_d = cd_merge["K9"][0]
+    # every K9 call of phases A, D and G against the torch form of the
+    # design, greedy_parse_walk; phase D's (tile 2048) against the plain
+    # version as well
+    k9_more = max(max(max_abs_err(torch, lz77.greedy_parse_kernel(*c),
+                                  lz77.greedy_parse_walk(*c))
+                      for c in k9 + [k9_d] + k9_g),
+                  max_abs_err(torch, lz77.greedy_parse_kernel(*k9_d),
+                              lz77.greedy_parse_plain(*k9_d)))
+    check(f"K9 greedy_parse (phase A, {k9[0][0].shape[0]} blocks, tile "
+          f"{k9[0][3]}; all {2 + len(k9_g)} calls of phases A, D and G "
+          f"also compared with greedy_parse_walk, phase D's tile-"
+          f"{k9_d[3]} call with the plain version; bound: 4 bytes in and "
+          f"5 out a position)", "K9",
+          "deflate_tpu_torch/csrc/parse.cu",
+          "deflate_tpu/ops/lz77.py:292 (lax.scan)",
+          lz77.greedy_parse_kernel, lz77.greedy_parse_plain, k9,
+          cmp=lambda got, want, c: max(max_abs_err(torch, got, want),
+                                       k9_more))
+    results[-1]["launches_d"] = ld_merge["K9"]
+    results[-1]["launches_g"] = launches_g9
+    results[-1]["ms_tile_2048"] = timed(
+        lambda: lz77.greedy_parse_kernel(*k9_d))
+    results[-1]["plain_ms_tile_2048"] = timed(
+        lambda: lz77.greedy_parse_plain(*k9_d), 1)
+    log(f"K9: {results[-1]['ms']:.4f} ms at tile {k9[0][3]}, plain "
+        f"{results[-1]['plain_ms']:.4f}; tile 2048 "
+        f"{results[-1]['ms_tile_2048']:.4f}, plain "
+        f"{results[-1]['plain_ms_tile_2048']:.4f} [{card}]")
 
     bad = [r["name"] for r in results if r["max_abs_err"] != 0]
     for r in results:

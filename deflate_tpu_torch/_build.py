@@ -47,6 +47,7 @@ SIGNATURES = {
                                                 I, P]},
     "block_inflate": {"dt_inflate_blocks": [P, P, P, P, P, P, P, P,
                                             I, I, P]},
+    "parse": {"dt_greedy_parse": [P, P, P, P, I, I, I, I, P]},
 }
 
 _lock = threading.Lock()

@@ -3,21 +3,27 @@
 Port of deflate_tpu/ops/lz77.py: sorted-adjacent hash-chain candidates
 (K per chain), window-word comparison, tiered hash chains over longer
 grams, the merge-extension to 258 bytes, the tile-local greedy parse and
-lazy_filter.  The sort keys ``(hash << 15) | pos`` are unique, so
+lazy_filter.  The parse runs on kernel K9 (csrc/parse.cu) on the card.
+The sort keys ``(hash << 15) | pos`` are unique, so
 ``torch.sort`` plus a gather of each window word reproduces the
 reference's multi-operand sort (stable or not) exactly, and the position
 restore is a scatter by position.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from deflate_tpu_torch import _build
 from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils.bits import I32, I64, M32, u32, wrap32
 from deflate_tpu_torch.utils.tables import MAX_MATCH, MIN_MATCH
 
 WIN_WORDS = 8                    # 32-byte comparison window
 TILE = 512                       # parse tile size
+KERNEL_MAX_TILE = 16384          # K9's largest tile (one CTA's positions)
+PARSE_FLAG = 0x8000              # a token start, in K9's staged lengths
 
 
 def _shift_back(a: torch.Tensor, k: int, fill) -> torch.Tensor:
@@ -200,37 +206,118 @@ def lazy_filter(length: torch.Tensor, dist: torch.Tensor):
     return torch.where(keep, length, 0), torch.where(keep, dist, 0)
 
 
-def greedy_parse(length: torch.Tensor, blen: torch.Tensor, lazy: bool = True,
-                 tile: int = TILE):
+def greedy_parse_plain(length: torch.Tensor, blen: torch.Tensor,
+                       lazy: bool = True, tile: int = TILE):
     """Greedy tokenization within `tile`-byte tiles, sequential in the
     tile step and vectorized over tiles x blocks; one-step lazy deferral
     at token starts.  length [B, n], blen [B].  Returns (mark bool [B, n]
     token starts, len_adj int32 [B, n] match length used, 0 for
     literals)."""
+    B, n = length.shape
+    dev = length.device
+    nt = n // tile
+    nxt = _shift_fwd(length, 1, 0)
+    Lt = length.reshape(B, nt, tile)
+    Nx = nxt.reshape(B, nt, tile)
+    base = (torch.arange(nt, dtype=I32, device=dev) * tile)[None, :]
+    bl = blen[:, None]
+    p = base.expand(B, nt).clone()
+    marks, lens = [], []
+    for t in range(tile):
+        pos = base + t
+        emit = (p == pos) & (pos < bl)
+        ml = torch.minimum(torch.clamp(Lt[:, :, t], max=tile - t),
+                           bl - pos)
+        use = emit & (ml >= MIN_MATCH)
+        if lazy:
+            nx_t = torch.minimum(
+                torch.clamp(Nx[:, :, t], max=tile - t - 1), bl - pos - 1)
+            use = use & ~(nx_t > ml)
+        p = p + torch.where(emit, torch.where(use, ml, 1), 0)
+        marks.append(emit)
+        lens.append(torch.where(use, ml, 0))
+    mark = torch.stack(marks, 2).reshape(B, n)
+    len_adj = torch.stack(lens, 2).reshape(B, n).to(I32)
+    return mark, len_adj
+
+
+def greedy_parse_walk(length: torch.Tensor, blen: torch.Tensor,
+                      lazy: bool = True, tile: int = TILE):
+    """Same contract as greedy_parse_plain, computed as csrc/parse.cu
+    does: the lengths are staged clamped to [0, tile] (which changes no
+    decision), one walker a tile jumps from token start to token start,
+    all walkers in step as the lanes of a warp, and overwrites each start
+    with PARSE_FLAG | len_adj; the flagged entries are the token starts
+    and every other position reads 0."""
+    B, n = length.shape
+    dev = length.device
+    nt = n // tile
+    # one spare column: the lazy read at a tile's last position, which
+    # never decides (ml <= 1 there)
+    buf = torch.cat([length.to(I64).clamp(0, tile).reshape(B * nt, tile),
+                     torch.zeros((B * nt, 1), dtype=I64, device=dev)], 1)
+    base = torch.arange(nt, dtype=I64, device=dev) * tile
+    end = torch.clamp(blen.to(I64)[:, None] - base[None, :], 0,
+                      tile).reshape(-1)
+    t = torch.zeros_like(end)
+    lanes = torch.arange(B * nt, device=dev)
+    while True:
+        live = t < end
+        if not bool(live.any()):
+            break
+        k, tk = lanes[live], t[live]
+        cap = end[live] - tk
+        ml = torch.minimum(buf[k, tk], cap)
+        use = ml >= MIN_MATCH
+        if lazy:
+            use = use & (torch.minimum(buf[k, tk + 1], cap - 1) <= ml)
+        buf[k, tk] = PARSE_FLAG | torch.where(use, ml, 0)
+        t[k] = tk + torch.where(use, ml, 1)
+    buf = buf[:, :tile].reshape(B, n)
+    mark = buf >= PARSE_FLAG
+    return mark, torch.where(mark, buf - PARSE_FLAG, 0).to(I32)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The ctypes function of dt_greedy_parse, resolved once."""
+    return _build.lib("parse").dt_greedy_parse
+
+
+def greedy_parse_kernel(length: torch.Tensor, blen: torch.Tensor,
+                        lazy: bool = True, tile: int = TILE):
+    """K9 on the card: same contract as greedy_parse_plain, for a tile
+    that is a multiple of 4 in [4, KERNEL_MAX_TILE] dividing n."""
+    length = length.to(I32).contiguous()
+    if length.data_ptr() & 15:
+        # a view that starts off a 16-byte line: the kernel loads int4
+        length = length.clone()
+    blen = blen.to(I32).contiguous()
+    dev = _build.require_cuda(length, blen)
+    B, n = length.shape
+    if tuple(blen.shape) != (B,):
+        raise ValueError(f"blen {tuple(blen.shape)}, want ({B},)")
+    if tile % 4 or not 4 <= tile <= KERNEL_MAX_TILE or n % tile:
+        raise ValueError(f"K9 takes a tile that is a multiple of 4 in "
+                         f"[4, {KERNEL_MAX_TILE}] dividing n; got tile "
+                         f"{tile}, n {n}")
+    mark = torch.empty((B, n), dtype=torch.bool, device=dev)
+    len_adj = torch.empty_like(length)
+    if B and n:
+        _build.check(_entry()(length.data_ptr(), blen.data_ptr(),
+                              mark.data_ptr(), len_adj.data_ptr(), B, n,
+                              tile, int(lazy), _build.stream_ptr(dev)),
+                     "dt_greedy_parse")
+        metrics.count("kernel.K9")
+    return mark, len_adj
+
+
+def greedy_parse(length: torch.Tensor, blen: torch.Tensor, lazy: bool = True,
+                 tile: int = TILE):
+    """Greedy tokenization within `tile`-byte tiles with one-step lazy
+    deferral at token starts.  length [B, n], blen [B].  Returns (mark
+    bool [B, n] token starts, len_adj int32 [B, n] match length used, 0
+    for literals).  CUDA tensors run K9; CPU tensors the plain version."""
     with metrics.span("lz77.greedy_parse"):
-        B, n = length.shape
-        dev = length.device
-        nt = n // tile
-        nxt = _shift_fwd(length, 1, 0)
-        Lt = length.reshape(B, nt, tile)
-        Nx = nxt.reshape(B, nt, tile)
-        base = (torch.arange(nt, dtype=I32, device=dev) * tile)[None, :]
-        bl = blen[:, None]
-        p = base.expand(B, nt).clone()
-        marks, lens = [], []
-        for t in range(tile):
-            pos = base + t
-            emit = (p == pos) & (pos < bl)
-            ml = torch.minimum(torch.clamp(Lt[:, :, t], max=tile - t),
-                               bl - pos)
-            use = emit & (ml >= MIN_MATCH)
-            if lazy:
-                nx_t = torch.minimum(
-                    torch.clamp(Nx[:, :, t], max=tile - t - 1), bl - pos - 1)
-                use = use & ~(nx_t > ml)
-            p = p + torch.where(emit, torch.where(use, ml, 1), 0)
-            marks.append(emit)
-            lens.append(torch.where(use, ml, 0))
-        mark = torch.stack(marks, 2).reshape(B, n)
-        len_adj = torch.stack(lens, 2).reshape(B, n).to(I32)
-        return mark, len_adj
+        fn = greedy_parse_kernel if length.is_cuda else greedy_parse_plain
+        return fn(length, blen, lazy, tile)

@@ -20,6 +20,7 @@ from deflate_tpu_torch.ops import bitpack as BP
 from deflate_tpu_torch.ops import block_inflate as BI
 from deflate_tpu_torch.ops import huffman as H
 from deflate_tpu_torch.ops import inflate_scan as IS
+from deflate_tpu_torch.ops import lz77 as LZ
 from deflate_tpu_torch.ops import pack as PK
 from deflate_tpu_torch.ops import tree
 from deflate_tpu_torch.ops import wave as W
@@ -27,11 +28,13 @@ from deflate_tpu_torch.ops import wave_fill as WF
 from deflate_tpu_torch.ops import wave_route as WR
 from deflate_tpu_torch.ops import wave_stagea as WS
 from deflate_tpu_torch.runtime import manifest as M
-from torch_helpers import (NM, PACK_CASES, ROUTE_CASES,  # noqa: F401
-                           assert_same, corpus, cuda_device, fill_case,
-                           hist_case, long_code_case, long_match_streams,
-                           monotone_instance, pack_case, random_code_case,
-                           route_case)
+from deflate_tpu_torch.utils import metrics
+from torch_helpers import (NM, PACK_CASES, PARSE_CASES,  # noqa: F401
+                           PARSE_TILES, ROUTE_CASES, assert_same, corpus,
+                           cuda_device, fill_case, hist_case,
+                           long_code_case, long_match_streams,
+                           monotone_instance, pack_case, parse_case,
+                           random_code_case, route_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -334,6 +337,67 @@ def test_k7_kernel_matches_plain(cuda_device):
     got = PK.pack_blocks_kernel(args[0], *views)
     torch.cuda.synchronize()
     assert_same(got, PK.pack_blocks_plain(*args), "K7 misaligned views")
+
+
+def test_k9_kernel_matches_plain(cuda_device):
+    """K9 against greedy_parse_plain and the torch form of its design,
+    greedy_parse_walk, with zero tolerance: every parse_case (ragged
+    blen, lengths past the tile and blen, an all-zero row, a match at
+    every position, find_matches of the mixed corpus at levels 2 and 3)
+    at tiles 512 and 2048, lazy and not; then a length view that starts
+    off a 16-byte line."""
+    for case in PARSE_CASES:
+        length, blen = parse_case(case, cuda_device)
+        length = torch.from_numpy(length).to(cuda_device)
+        blen = torch.from_numpy(blen).to(cuda_device)
+        for tile in PARSE_TILES:
+            for lazy in (True, False):
+                got = LZ.greedy_parse_kernel(length, blen, lazy, tile)
+                want = LZ.greedy_parse_plain(length, blen, lazy, tile)
+                walk = LZ.greedy_parse_walk(length, blen, lazy, tile)
+                torch.cuda.synchronize()
+                what = f"K9 {case} tile {tile} lazy {lazy}"
+                assert got[0].dtype == torch.bool, what
+                for g, w, v in zip(got, want, walk):
+                    assert_same(g, w, what)
+                    assert_same(g, v, what + " vs walk")
+    flat = torch.cat([torch.zeros(1, dtype=torch.int32, device=cuda_device),
+                      length.reshape(-1)])
+    view = flat[1:].view(length.shape)
+    assert view.data_ptr() % 16
+    got = LZ.greedy_parse_kernel(view, blen)
+    torch.cuda.synchronize()
+    for g, w in zip(got, LZ.greedy_parse_plain(length, blen)):
+        assert_same(g, w, "K9 misaligned view")
+    with pytest.raises(ValueError):
+        LZ.greedy_parse_kernel(length, blen, tile=96 * 1024)
+
+
+def test_k9_once_per_tokenize_block(cuda_device, monkeypatch):
+    """Every tokenize_block on the card launches K9 exactly once: the
+    manifest encode at levels 1-3 (one batch), compress in segments of
+    64 blocks, with stats (a second planning pass) and compress_many."""
+    calls = []
+    tokenize = E.tokenize_block
+
+    def counted(*args, **kw):
+        calls.append(args[2] if len(args) > 2 else kw["level"])
+        return tokenize(*args, **kw)
+
+    monkeypatch.setattr(E, "tokenize_block", counted)
+    data = corpus(65, seed=36)[:64 * 32768 + 5000]
+    metrics.reset()
+    for level in (1, 2, 3):
+        s, m = M.compress_with_manifest(data[:200000], level=level,
+                                        device=cuda_device)
+        assert zlib.decompress(s, -15) == data[:200000]
+    assert zlib.decompress(D.compress(data, 2, device=cuda_device),
+                           -15) == data
+    D.compress(data[:100000], 2, stats={}, device=cuda_device)
+    D.compress_many([data[:70000], data[-40000:]], 2, device=cuda_device)
+    torch.cuda.synchronize()
+    assert len(calls) >= 7 and {1, 2, 3} <= set(calls)
+    assert metrics.snapshot()["counts"]["kernel.K9"] == len(calls)
 
 
 def test_k8_kernel_matches_plain(cuda_device):

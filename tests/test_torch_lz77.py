@@ -1,6 +1,7 @@
 """Port vs reference: match finder, greedy parse, encoder planning, block
 choice and bit assembly (ops/lz77.py, ops/bitmerge.py,
-models/encoder.py stages A-B)."""
+models/encoder.py stages A-B); kernel K9's design, greedy_parse_walk,
+against the plain parse."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +14,8 @@ from deflate_tpu.ops import lz77 as JLZ
 from deflate_tpu_torch.models import encoder as E
 from deflate_tpu_torch.ops import bitmerge as BM
 from deflate_tpu_torch.ops import lz77 as LZ
-from torch_helpers import BLOCK, assert_same, corpus
+from torch_helpers import (BLOCK, PARSE_CASES, PARSE_TILES, assert_same,
+                           corpus, parse_case)
 
 
 @pytest.fixture(scope="module")
@@ -67,6 +69,46 @@ def test_level3_find_matches_and_lazy_filter_match_reference(blocks):
     assert_same(tfl, jfl, "lazy lengths")
     assert_same(tfd, jfd, "lazy distances")
     assert (tfl == 0).sum() > (tl == 0).sum()
+
+
+@pytest.fixture(scope="module")
+def parse_inputs():
+    """parse_case by name, each computed once (level 3's find_matches
+    takes seconds here)."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = parse_case(name)
+        return cache[name]
+    return get
+
+
+@pytest.mark.parametrize("lazy", [True, False], ids=["lazy", "greedy"])
+@pytest.mark.parametrize("tile", PARSE_TILES)
+@pytest.mark.parametrize("case", PARSE_CASES)
+def test_greedy_parse_walk_matches_plain(parse_inputs, case, tile, lazy):
+    """K9's token-start walk (greedy_parse_walk) against the plain
+    tile-step loop, and greedy_parse on CPU tensors is the plain loop."""
+    length, blen = parse_inputs(case)
+    args = (torch.from_numpy(length), torch.from_numpy(blen), lazy, tile)
+    want_mark, want_len = LZ.greedy_parse_plain(*args)
+    got_mark, got_len = LZ.greedy_parse_walk(*args)
+    assert_same(got_mark, want_mark, "token starts")
+    assert_same(got_len, want_len, "parsed lengths")
+    mark, len_adj = LZ.greedy_parse(*args)
+    assert_same(mark, want_mark, "greedy_parse token starts")
+    assert_same(len_adj, want_len, "greedy_parse lengths")
+    # a block's token starts cover its blen bytes exactly
+    covered = torch.where(want_mark, torch.clamp(want_len, min=1), 0).sum(1)
+    assert_same(covered, np.clip(blen, 0, BLOCK), "bytes covered")
+
+
+def test_greedy_parse_kernel_refuses_cpu_tensors():
+    length, blen = parse_case("zeros")
+    with pytest.raises(ValueError, match="CUDA"):
+        LZ.greedy_parse_kernel(torch.from_numpy(length),
+                               torch.from_numpy(blen))
 
 
 @pytest.mark.parametrize("level", [1, 2])

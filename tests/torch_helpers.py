@@ -318,6 +318,66 @@ def pack_spill(counts, off, lo, hi) -> np.ndarray:
     return spill.astype(np.uint32).view(np.int32)
 
 
+PARSE_CASES = ["ragged", "long", "zeros", "dense", "level2", "level3"]
+PARSE_TILES = [512, 2048]       # the encoder's tiles: levels 1-2, level 3
+
+
+def _parse_blocks(blens):
+    """Blocks of the mixed corpus (text, repeats, words, random), zero
+    past each blen."""
+    data = np.frombuffer(corpus(4, seed=19), np.uint8).reshape(4, BLOCK)
+    data = data.copy()
+    for b, n in enumerate(blens):
+        data[b, n:] = 0
+    return data
+
+
+def parse_case(name: str, device="cpu"):
+    """(length int32 [B, BLOCK], blen int32 [B]) numpy arrays of a
+    PARSE_CASES entry, for the greedy parse: ragged block lengths (0-3,
+    tile edges, not a tile multiple, full); lengths past the tile
+    remainder, past blen, negative and past 16 bits; an all-zero row
+    (level 1); a match at every position (lazy deferral throughout); and
+    find_matches of the mixed corpus at levels 2 and 3, run on
+    `device`."""
+    from deflate_tpu_torch.models import encoder as E
+    from deflate_tpu_torch.ops import lz77 as LZ
+
+    rng = np.random.default_rng(PARSE_CASES.index(name) + 90)
+    if name == "ragged":
+        blen = np.array([0, 1, 2, 3, 20001, BLOCK, 511, 513, 2047, 2049],
+                        np.int32)
+        length = np.where(rng.random((len(blen), BLOCK)) < 0.3,
+                          rng.integers(3, 259, (len(blen), BLOCK)), 0)
+        length[:, :4] = 3                 # matches at the first positions
+    elif name == "long":
+        blen = np.array([BLOCK, 30000, 1000, 4097, 2050], np.int32)
+        vals = np.array([-5, -1, 0, 3, 4, 257, 258, 259, 511, 512, 513,
+                         2047, 2048, 2049, 4000, 70000, 1 << 30])
+        length = rng.choice(vals, (len(blen), BLOCK))
+        length[:, rng.random(BLOCK) < 0.5] = 0
+    elif name == "zeros":
+        blen = np.array([BLOCK, 5, 0], np.int32)
+        length = np.zeros((len(blen), BLOCK), np.int64)
+    elif name == "dense":
+        blen = np.array([BLOCK, 12345], np.int32)
+        length = rng.integers(3, 12, (len(blen), BLOCK))
+    else:
+        blen = np.array([BLOCK, BLOCK, 20001, 777], np.int32)
+        block = torch.from_numpy(_parse_blocks(blen)).to(device)
+        bl = torch.from_numpy(blen).to(device)
+        if name == "level2":
+            length, _ = LZ.find_matches(block, bl, E.L2_CANDS,
+                                        win_words=E.L2_WIN_WORDS,
+                                        toofar3=E.L2_TOOFAR3)
+        else:
+            length, _ = LZ.find_matches(
+                block, bl, E.L3_CANDS, win_words=E.L3_WIN_WORDS,
+                tiers=E.L3_TIERS, toofar3=E._toofar3_by_entropy(block, bl))
+        length = length.cpu().numpy()
+    return length.astype(np.int32), blen
+
+
 def fill_case(B):
     """Every distance class (1, 2, 3 periodic; 4-8 overlapping; far),
     every word phase, short and long lengths (the reference's
