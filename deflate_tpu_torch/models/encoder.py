@@ -119,11 +119,11 @@ def tokenize_block(block, blen, level: int):
     arrays ([B, N] each, plus ntok [B])."""
     tile = PARSE_TILE
     if level >= 3:
+        with metrics.span("lz77.far_cut"):
+            toofar3 = _toofar3_by_entropy(block, blen)
         length, dist = LZ.find_matches(block, blen, L3_CANDS,
                                        win_words=L3_WIN_WORDS,
-                                       tiers=L3_TIERS,
-                                       toofar3=_toofar3_by_entropy(block,
-                                                                   blen))
+                                       tiers=L3_TIERS, toofar3=toofar3)
         tile = L3_PARSE_TILE
     elif level == 2:
         length, dist = LZ.find_matches(block, blen, L2_CANDS,

@@ -157,46 +157,58 @@ def find_matches(block: torch.Tensor, blen: torch.Tensor,
                                dev).reshape(-1, 1)
 
         def tier(h):
+            # the (position, candidate) pairs the pass compares
+            metrics.count("lz77.pairs", B * n * num_cands)
             return _tier_pass(h, valid, pos_pm, wins, blen, num_cands, tf)
 
-        length, dist = tier(_hash15(u32(wins[0]) & 0x00FFFFFF))
+        with metrics.span("lz77.chain"):
+            length, dist = tier(_hash15(u32(wins[0]) & 0x00FFFFFF))
         for g in tiers:
-            tl, td = tier(_tier_hash(wins, g))
-            better = (tl > length) | ((tl == length) & (td > 0)
-                                      & ((dist == 0) | (td < dist)))
-            length = torch.where(better, tl, length)
-            dist = torch.where(better, td, dist)
+            with metrics.span("lz77.tier"):
+                tl, td = tier(_tier_hash(wins, g))
+                better = (tl > length) | ((tl == length) & (td > 0)
+                                          & ((dist == 0) | (td < dist)))
+                length = torch.where(better, tl, length)
+                dist = torch.where(better, td, dist)
         del wins
+        with metrics.span("lz77.extend"):
+            return _merge_extend(length, dist, blen, 4 * win_words)
 
-        # ---- merge-extension: compose verified window-sized pieces --------
-        cap = 4 * win_words
-        ar = torch.arange(n, dtype=I32, device=dev)[None, :]
-        limit = torch.clamp(torch.clamp(blen[:, None] - ar, max=MAX_MATCH),
-                            min=0)
-        nxt_d = _shift_fwd(dist, cap, 0)
-        nxt_l = _shift_fwd(length, cap, 0)
-        linked = ((length == cap) & (dist > 0) & (nxt_d == dist)
-                  & (nxt_l > 0)).to(I32)
-        c = linked
-        alll = linked
-        for r in range(3):
-            s = cap * (1 << r)
-            c = c + alll * _shift_fwd(c, s, 0)
-            alll = alll * _shift_fwd(alll, s, 0)
-        c = torch.clamp(c, max=8)
-        tail = torch.zeros_like(length)
-        for hops in range(9):
-            tl = length if hops == 0 else _shift_fwd(length, cap * hops, 0)
-            td = dist if hops == 0 else _shift_fwd(dist, cap * hops, 0)
-            if hops:
-                tl = torch.where(td == dist, tl, 0)
-            tail = torch.where(c == hops, tl, tail)
-        merged = torch.where(length == cap, cap * c + tail, length)
-        length = torch.minimum(torch.maximum(length, merged), limit)
 
-        usable = length >= MIN_MATCH
-        return (torch.where(usable, length, 0).to(I32),
-                torch.where(usable, dist, 0).to(I32))
+def _merge_extend(length, dist, blen, cap: int):
+    """The merge-extension: a match that fills its cap-byte window and
+    continues at the same distance cap bytes on is composed with what
+    follows, up to MAX_MATCH and the block's end; matches under
+    MIN_MATCH are cleared.  Returns (length, dist) int32 [B, n]."""
+    n = length.shape[1]
+    dev = length.device
+    ar = torch.arange(n, dtype=I32, device=dev)[None, :]
+    limit = torch.clamp(torch.clamp(blen[:, None] - ar, max=MAX_MATCH),
+                        min=0)
+    nxt_d = _shift_fwd(dist, cap, 0)
+    nxt_l = _shift_fwd(length, cap, 0)
+    linked = ((length == cap) & (dist > 0) & (nxt_d == dist)
+              & (nxt_l > 0)).to(I32)
+    c = linked
+    alll = linked
+    for r in range(3):
+        s = cap * (1 << r)
+        c = c + alll * _shift_fwd(c, s, 0)
+        alll = alll * _shift_fwd(alll, s, 0)
+    c = torch.clamp(c, max=8)
+    tail = torch.zeros_like(length)
+    for hops in range(9):
+        tl = length if hops == 0 else _shift_fwd(length, cap * hops, 0)
+        td = dist if hops == 0 else _shift_fwd(dist, cap * hops, 0)
+        if hops:
+            tl = torch.where(td == dist, tl, 0)
+        tail = torch.where(c == hops, tl, tail)
+    merged = torch.where(length == cap, cap * c + tail, length)
+    length = torch.minimum(torch.maximum(length, merged), limit)
+
+    usable = length >= MIN_MATCH
+    return (torch.where(usable, length, 0).to(I32),
+            torch.where(usable, dist, 0).to(I32))
 
 
 def lazy_filter(length: torch.Tensor, dist: torch.Tensor):

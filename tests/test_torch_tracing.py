@@ -17,9 +17,9 @@ from deflate_tpu_torch.runtime import manifest as M
 from deflate_tpu_torch.utils import metrics
 from torch_helpers import corpus, corrupt_block3, cuda_device  # noqa: F401
 
-ENCODE = {"encode", "encode.split", "lz77.find_matches",
-          "lz77.greedy_parse", "encode.trees", "encode.choose",
-          "encode.emit", "encode.to_host"}
+ENCODE = {"encode", "encode.split", "lz77.find_matches", "lz77.chain",
+          "lz77.extend", "lz77.greedy_parse", "encode.trees",
+          "encode.choose", "encode.emit", "encode.to_host"}
 DECODE = {"decode", "decode.headers", "decode.windows", "decode.to_device",
           "decode.stages", "wave.resolve_litval", "wave.merge_match_runs",
           "decode.fill", "decode.to_host"}
@@ -230,6 +230,53 @@ def test_compress_and_forced_decompress_spans(data):
     assert out == data
     assert set(snap["spans"]) == {"decode", "decode.fallback"}
     assert snap["counts"] == {"decode.path.native_host": 1}
+
+
+def _tokenized(data, level):
+    """One tokenize_block of data's first block, recorded as one op."""
+    from deflate_tpu_torch.models import encoder as E
+
+    blocks, blens = M.split_blocks(data[:E.N])
+    block = torch.from_numpy(blocks)
+    blen = torch.from_numpy(blens)
+
+    def op():
+        with metrics.span("encode"):
+            return E.tokenize_block(block, blen, level)
+    return _recorded(op)[1], block.shape
+
+
+def test_level3_search_spans_and_pairs(data):
+    snap, (B, n) = _tokenized(data, 3)
+    spans = snap["spans"]
+    assert {k: spans[k]["n"] for k in spans if k.startswith("lz77.")} == {
+        "lz77.far_cut": 1, "lz77.find_matches": 1, "lz77.chain": 1,
+        "lz77.tier": 2, "lz77.extend": 1, "lz77.greedy_parse": 1}
+    assert snap["counts"] == {"lz77.pairs": 3 * 48 * B * n}
+
+
+def test_level2_search_spans_and_pairs(data):
+    snap, (B, n) = _tokenized(data, 2)
+    assert {k for k in snap["spans"] if k.startswith("lz77.")} == {
+        "lz77.find_matches", "lz77.chain", "lz77.extend",
+        "lz77.greedy_parse"}
+    assert snap["spans"]["lz77.chain"]["n"] == 1
+    assert snap["counts"] == {"lz77.pairs": 4 * B * n}
+
+
+@pytest.mark.parametrize("level", [2, 3])
+def test_lz77_self_times_sum_to_the_outer_lz77_spans(data, level):
+    """The search spans nest in lz77.find_matches, so the lz77. prefix
+    that self_ms_per_MiB.lz77 sums reads the same total as before."""
+    snap, _ = _tokenized(data, level)
+    spans = snap["spans"]
+    outer = sum(spans[k]["total_s"] for k in (
+        "lz77.find_matches", "lz77.greedy_parse", "lz77.far_cut")
+        if k in spans)
+    inner = sum(v["self_s"] for k, v in spans.items()
+                if k.startswith("lz77."))
+    assert inner == pytest.approx(outer, rel=1e-9, abs=1e-9)
+    assert spans["lz77.find_matches"]["self_s"] > 0
 
 
 @pytest.mark.cuda
