@@ -7,7 +7,7 @@ source, all at once) and the native host library (g++), then drives
 eight paths on an 8 MiB mixed corpus (256 blocks of 32 KiB), each with
 every kernel count set to 0 just before it and read just after:
 
-  A  level-2 ``compress_with_manifest`` (K9, K1), then hinted
+  A  level-2 ``compress_with_manifest`` (K10, K9, K1), then hinted
      ``decode_all`` on the card (K2-K4);
   B  a foreign stream (python zlib, level 6, raw) through
      ``decompress(device=cuda, force_device=True)``: the skeleton walk,
@@ -17,9 +17,10 @@ every kernel count set to 0 just before it and read just after:
   C  ``compress_with_manifest(hints=False)``, then ``decode_all`` on the
      card: every block through the full block inflate (K6);
   D  level 3: ``compress_with_manifest(level=3)`` (the default merge
-     emission, K9 at tile 2048, K1), then ``encoder.encode_batch_with_hints(level=3,
-     pack="kernel")`` on the same blocks (packet fusion, compaction on
-     K3, placement on K7); stream, manifest and hints must be identical;
+     emission, K10 on three hash passes, K9 at tile 2048, K1), then
+     ``encoder.encode_batch_with_hints(level=3, pack="kernel")`` on the
+     same blocks (packet fusion, compaction on K3, placement on K7);
+     stream, manifest and hints must be identical;
   E  hinted ``decode_all`` of D's stream with DT_STAGEAB_PALLAS=0: stage
      A at every bit phase on K8, the mark automaton in torch, K3, K4 —
      and K2 not at all;
@@ -70,7 +71,10 @@ K7's offsets must not decrease), and K1 on every call of phases A, D
 and G against its plain version and the torch form of its design; K9
 on phase A's call against its plain version and on every call of phases
 A, D and G against the torch form of its design (greedy_parse_walk), and
-on phase D's tile-2048 call against the plain version too; K6's result
+on phase D's tile-2048 call against the plain version too; K10 on
+phase D's three level-3 passes and phase A's level-2 pass against its
+plain version, with the (position, candidate) pairs it compares a ns;
+K6's result
 adds its time on each corpus quarter's 64 blocks alone (quarter_ms).
 Phase H's calls of K1-K4 are held the same way: K1's and K3's in full
 against their plain versions, K2's and K4's on their first rows against
@@ -326,6 +330,7 @@ def main() -> int:
         "K7": (pack, "pack_blocks_kernel"),
         "K8": (wave_stagea, "decode_positions_kernel"),
         "K9": (lz77, "greedy_parse_kernel"),
+        "K10": (lz77, "lag_search_kernel"),
     }
 
     def launched_since_reset(k: str) -> int:
@@ -365,7 +370,7 @@ def main() -> int:
 
     launches, calls = {}, {}
 
-    # ---- phase A: encode, then hinted device decode (K1-K4, K9) --------
+    # ---- phase A: encode, then hinted device decode (K1-K4, K9, K10) ---
     def phase_a():
         s, m = M.compress_with_manifest(data, level=2, device=dev)
         torch.cuda.synchronize()
@@ -374,7 +379,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     (stream, man, out, t_enc), _, la, ca = run_phase(
-        ["K1", "K2", "K3", "K4", "K9"], phase_a)
+        ["K1", "K2", "K3", "K4", "K9", "K10"], phase_a)
     t_dec = time.perf_counter() - t_enc
     t_enc -= t_start
     launches.update(la)
@@ -480,7 +485,7 @@ def main() -> int:
     ws3, wm3 = M.compress_with_manifest(data, level=3, device=dev)
     require(encode_l3("kernel")[0] == ws3, "warm-up level-3 kernel pack")
     (s3, m3), t_d, ld_merge, cd_merge = run_phase(
-        ["K1", "K9"],
+        ["K1", "K9", "K10"],
         lambda: M.compress_with_manifest(data, level=3, device=dev))
     (ks3, km3), t_dk, ld, cd = run_phase(["K1", "K3", "K7"],
                                          lambda: encode_l3("kernel"))
@@ -494,7 +499,8 @@ def main() -> int:
             "level-3 offsets or hints of the two backends differ")
     say(f"D level-3 encode: {len(data)} bytes -> {len(s3)} bytes (ratio "
         f"{len(s3) / len(data):.4f}); merge backend {t_d:.3f} s = "
-        f"{mb / t_d:.2f} MB/s (K1 {ld_merge['K1']}, K9 {ld_merge['K9']}); "
+        f"{mb / t_d:.2f} MB/s (K1 {ld_merge['K1']}, K9 {ld_merge['K9']}, "
+        f"K10 {ld_merge['K10']}); "
         f"kernel pack "
         f"{t_dk:.3f} s = {mb / t_dk:.2f} MB/s (K1 {ld['K1']}, K3 "
         f"{ld['K3']}, K7 {ld['K7']} launches); streams, offsets and "
@@ -1198,6 +1204,41 @@ def main() -> int:
         f"{results[-1]['plain_ms']:.4f}; tile 2048 "
         f"{results[-1]['ms_tile_2048']:.4f}, plain "
         f"{results[-1]['plain_ms_tile_2048']:.4f} [{card}]")
+
+    k10, k10_d = calls["K10"], cd_merge["K10"]
+    require(len(k10) == 1 and len(k10_d) == 1 + len(E.L3_TIERS),
+            f"K10 ran {len(k10)} times in phase A, {len(k10_d)} in D")
+    k10_a_err = max(max_abs_err(torch, lz77.lag_search_kernel(*c),
+                                lz77.lag_search_plain(*c)) for c in k10)
+
+    def pairs(cs) -> int:
+        # positions x chain depth: the pairs each pass asks for
+        return sum(c[0].numel() * c[3] for c in cs)
+
+    check(f"K10 lag_search (phase D's {len(k10_d)} level-3 passes, "
+          f"{k10_d[0][0].shape[0]} blocks, K {k10_d[0][3]}, W "
+          f"{k10_d[0][4]}; phase A's level-2 pass also compared with the "
+          f"plain version; bound: 13 bytes a position, the byte, the key "
+          f"and two int32 results)", "K10",
+          "deflate_tpu_torch/csrc/lag_search.cu",
+          "none: XLA code, deflate_tpu/ops/lz77.py:94 find_matches",
+          lz77.lag_search_kernel, lz77.lag_search_plain, k10_d,
+          bound_bytes=sum(13 * c[0].numel() for c in k10_d),
+          cmp=lambda got, want, c: max(max_abs_err(torch, got, want),
+                                       k10_a_err))
+    r10 = results[-1]
+    r10["launches"], r10["launches_a"] = ld_merge["K10"], launches["K10"]
+    r10["pairs_per_ns"] = pairs(k10_d) / (r10["ms"] * 1e6)
+    r10["ms_level2"] = timed(lambda: lz77.lag_search_kernel(*k10[0]))
+    r10["plain_ms_level2"] = timed(
+        lambda: lz77.lag_search_plain(*k10[0]), 1)
+    r10["bound_ms_level2"] = 13 * k10[0][0].numel() / HBM_BYTES_PER_S * 1e3
+    r10["pairs_per_ns_level2"] = pairs(k10) / (r10["ms_level2"] * 1e6)
+    log(f"K10: {r10['ms']:.4f} ms over phase D's {len(k10_d)} passes "
+        f"({r10['pairs_per_ns']:.2f} pairs/ns), plain "
+        f"{r10['plain_ms']:.4f}; level 2 {r10['ms_level2']:.4f} "
+        f"({r10['pairs_per_ns_level2']:.2f} pairs/ns), plain "
+        f"{r10['plain_ms_level2']:.4f} [{card}]")
 
     bad = [r["name"] for r in results if r["max_abs_err"] != 0]
     for r in results:

@@ -48,6 +48,7 @@ SIGNATURES = {
     "block_inflate": {"dt_inflate_blocks": [P, P, P, P, P, P, P, P,
                                             I, I, P]},
     "parse": {"dt_greedy_parse": [P, P, P, P, I, I, I, I, P]},
+    "lag_search": {"dt_lag_search": [P, P, P, P, P, P, I, I, I, I, P]},
 }
 
 _lock = threading.Lock()

@@ -3,11 +3,12 @@
 Port of deflate_tpu/ops/lz77.py: sorted-adjacent hash-chain candidates
 (K per chain), window-word comparison, tiered hash chains over longer
 grams, the merge-extension to 258 bytes, the tile-local greedy parse and
-lazy_filter.  The parse runs on kernel K9 (csrc/parse.cu) on the card.
-The sort keys ``(hash << 15) | pos`` are unique, so
-``torch.sort`` plus a gather of each window word reproduces the
-reference's multi-operand sort (stable or not) exactly, and the position
-restore is a scatter by position.
+lazy_filter.  On the card the lag search of each hash pass runs on
+kernel K10 (csrc/lag_search.cu) and the parse on K9 (csrc/parse.cu).
+The sort keys ``(hash << 15) | pos`` are unique, so ``torch.sort`` plus a
+gather of each window word reproduces the reference's multi-operand sort
+(stable or not) exactly, and the position restore is a scatter by
+position.
 """
 from __future__ import annotations
 
@@ -103,14 +104,24 @@ def _lag_lengths(sw: torch.Tensor, k: int) -> torch.Tensor:
     return 4 * Lw + part.to(I32)
 
 
-def _tier_pass(h, valid, pos_pm, wins, blen, num_cands: int, toofar3):
-    """One hash-chain pass: sort by (h, pos), compare the K lagged
-    windows, keep the longest (the nearest on ties), restore position
-    order.  Returns (length, dist) int32 [B, n]."""
-    key = torch.where(valid, (h << 15) | pos_pm, (1 << 30) + pos_pm)
-    skey, perm = torch.sort(key, dim=1)
-    sw = torch.gather(wins, 2, perm[None].expand_as(wins))
+def lag_search_plain(block: torch.Tensor, skey: torch.Tensor,
+                     blen: torch.Tensor, num_cands: int, win_words: int,
+                     toofar3):
+    """The lag search of one hash pass: compare each sorted lane's
+    win_words-word window with those of the K lanes before it, keep the
+    longest (the nearest on ties), restore position order.
+
+    block uint8 [B, n]; skey int32 [B, n], the pass's sorted keys
+    ((hash << 15) | pos, or (1 << 30) + pos where no match starts);
+    blen int32 [B]; toofar3 broadcasts against [B, n].  Returns (length,
+    dist) int32 [B, n]."""
+    n = block.shape[1]
+    wins = _window_words(block, win_words)
     spos = skey & 0x7FFF
+    # each sorted lane's column in the phase-major window words
+    perm = ((spos & 3) * (n // 4) + (spos >> 2)).to(I64)
+    sw = torch.gather(wins, 2, perm[None].expand_as(wins))
+    del wins
     shash = skey >> 15
     svalid = (skey < (1 << 30)).to(I32)
     slimit = torch.clamp(blen[:, None] - spos, max=MAX_MATCH)
@@ -133,6 +144,62 @@ def _tier_pass(h, valid, pos_pm, wins, blen, num_cands: int, toofar3):
             torch.zeros_like(best_d).scatter(1, sp, best_d))
 
 
+@functools.lru_cache(maxsize=None)
+def _search_entry():
+    """The ctypes function of dt_lag_search, resolved once."""
+    return _build.lib("lag_search").dt_lag_search
+
+
+def lag_search_kernel(block: torch.Tensor, skey: torch.Tensor,
+                      blen: torch.Tensor, num_cands: int, win_words: int,
+                      toofar3):
+    """K10 on the card: same contract as lag_search_plain, for n a
+    multiple of 4 up to 32768; toofar3 an int or an int32 tensor of one
+    value or one a block."""
+    if block.dtype != torch.uint8:
+        raise ValueError(f"K10 takes uint8 blocks, got {block.dtype}")
+    block = block.contiguous()
+    if block.data_ptr() & 3:
+        # a view that starts off a 4-byte word: the kernel loads words
+        block = block.clone()
+    skey = skey.to(I32).contiguous()
+    blen = blen.to(I32).contiguous()
+    dev = _build.require_cuda(skey, blen)
+    if block.device != dev:
+        raise ValueError(f"expected CUDA tensors on {dev}, got "
+                         f"{block.device}")
+    B, n = block.shape
+    tf = torch.as_tensor(toofar3, dtype=I32, device=dev).reshape(-1)
+    tf = tf.expand(B).contiguous()
+    if tuple(skey.shape) != (B, n) or tuple(blen.shape) != (B,):
+        raise ValueError(f"skey {tuple(skey.shape)}, blen "
+                         f"{tuple(blen.shape)}; want ({B}, {n}), ({B},)")
+    if n % 4 or n > 1 << 15 or num_cands < 0 or win_words < 1:
+        raise ValueError(f"K10 takes n a multiple of 4 up to 32768, "
+                         f"num_cands >= 0, win_words >= 1; got n {n}, "
+                         f"num_cands {num_cands}, win_words {win_words}")
+    length = torch.empty_like(skey)
+    dist = torch.empty_like(skey)
+    if B and n:
+        _build.check(_search_entry()(
+            block.data_ptr(), skey.data_ptr(), blen.data_ptr(),
+            tf.data_ptr(), length.data_ptr(), dist.data_ptr(), B, n,
+            num_cands, win_words, _build.stream_ptr(dev)), "dt_lag_search")
+        metrics.count("kernel.K10")
+    return length, dist
+
+
+def _tier_pass(h, valid, pos_pm, block, blen, num_cands: int,
+               win_words: int, toofar3):
+    """One hash-chain pass: sort by (h, pos), then the lag search (K10
+    for CUDA tensors, the plain version for CPU ones).  Returns (length,
+    dist) int32 [B, n]."""
+    key = torch.where(valid, (h << 15) | pos_pm, (1 << 30) + pos_pm)
+    skey = torch.sort(key, dim=1).values
+    fn = lag_search_kernel if skey.is_cuda else lag_search_plain
+    return fn(block, skey, blen, num_cands, win_words, toofar3)
+
+
 def find_matches(block: torch.Tensor, blen: torch.Tensor,
                  num_cands: int = 4, win_words: int = WIN_WORDS,
                  tiers: tuple = (), toofar3=256):
@@ -149,7 +216,8 @@ def find_matches(block: torch.Tensor, blen: torch.Tensor,
         B, n = block.shape
         dev = block.device
         nw = n // 4
-        wins = _window_words(block, win_words)              # [W, B, n]
+        # the hashes read only the first max(tiers) words
+        wins = _window_words(block, max(tiers, default=1))
         iw = torch.arange(nw, dtype=I32, device=dev)
         pos_pm = torch.cat([4 * iw + p for p in range(4)])[None, :]
         valid = pos_pm < (blen[:, None] - (MIN_MATCH - 1))
@@ -159,7 +227,8 @@ def find_matches(block: torch.Tensor, blen: torch.Tensor,
         def tier(h):
             # the (position, candidate) pairs the pass compares
             metrics.count("lz77.pairs", B * n * num_cands)
-            return _tier_pass(h, valid, pos_pm, wins, blen, num_cands, tf)
+            return _tier_pass(h, valid, pos_pm, block, blen, num_cands,
+                              win_words, tf)
 
         with metrics.span("lz77.chain"):
             length, dist = tier(_hash15(u32(wins[0]) & 0x00FFFFFF))

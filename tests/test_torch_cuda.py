@@ -34,7 +34,7 @@ from torch_helpers import (NM, PACK_CASES, PARSE_CASES,  # noqa: F401
                            cuda_device, fill_case, hist_case,
                            long_code_case, long_match_streams,
                            monotone_instance, pack_case, parse_case,
-                           random_code_case, route_case)
+                           random_code_case, route_case, search_blocks)
 
 pytestmark = pytest.mark.cuda
 
@@ -398,6 +398,116 @@ def test_k9_once_per_tokenize_block(cuda_device, monkeypatch):
     torch.cuda.synchronize()
     assert len(calls) >= 7 and {1, 2, 3} <= set(calls)
     assert metrics.snapshot()["counts"]["kernel.K9"] == len(calls)
+
+
+def _on(x, dev):
+    return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+
+def test_k10_kernel_matches_plain(cuda_device, monkeypatch):
+    """K10 against the plain lag search with zero tolerance: every hash
+    pass of find_matches on search_blocks (the mixed corpus, log lines
+    at the 128-byte cap and up to the block's end, an all-zero block,
+    blen 0-4, 131, BLOCK - 1 and BLOCK) at level 2's settings and at
+    level 3's (the 3-byte chain and the 8- and 16-byte grams, a far cut
+    of 256 or 4096 by block), _tier_pass on the card against the same
+    pass on the CPU; then the whole find_matches on the card against
+    the CPU, and a block view that starts off a word."""
+    block, blen = (torch.from_numpy(a) for a in search_blocks())
+    cut = torch.from_numpy(
+        np.where(np.arange(len(blen)) % 2, 4096, 256).astype(np.int32))
+    levels = {2: (E.L2_CANDS, E.L2_WIN_WORDS, (), E.L2_TOOFAR3),
+              3: (E.L3_CANDS, E.L3_WIN_WORDS, E.L3_TIERS, cut)}
+    tier_pass = LZ._tier_pass
+    passes = []
+
+    def kept(*args):
+        out = tier_pass(*args)
+        if not args[0].is_cuda:
+            passes.append((args, out))
+        return out
+
+    monkeypatch.setattr(LZ, "_tier_pass", kept)
+    pos = torch.arange(block.shape[1], dtype=torch.int32)[None, :]
+    for level, (K, W, tiers, tf) in levels.items():
+        passes.clear()
+        want = LZ.find_matches(block, blen, K, win_words=W, tiers=tiers,
+                               toofar3=tf)
+        got = LZ.find_matches(block.to(cuda_device), blen.to(cuda_device),
+                              K, win_words=W, tiers=tiers,
+                              toofar3=_on(tf, cuda_device))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert_same(g, w, f"find_matches level {level}")
+        assert len(passes) == 1 + len(tiers)
+        for p, (args, (wl, wd)) in enumerate(passes):
+            gl, gd = tier_pass(*(_on(a, cuda_device) for a in args))
+            torch.cuda.synchronize()
+            what = f"K10 level {level} pass {p}"
+            assert_same(gl, wl, what + " length")
+            assert_same(gd, wd, what + " dist")
+            assert (wl == 4 * W).any(), what + ": no match at the cap"
+            end = (wl > 0) & (wl < 4 * W) & (wl == blen[:, None] - pos)
+            assert end.any(), what + ": no match ends at blen"
+    # keys of 8 deep buckets, one position in ten where no match starts
+    rng = np.random.default_rng(3)
+    h = rng.integers(0, 8, block.shape)
+    key = np.where(rng.random(block.shape) < 0.9, (h << 15) | pos.numpy(),
+                   (1 << 30) + pos.numpy())
+    skey = torch.from_numpy(np.sort(key, 1).astype(np.int32)).to(cuda_device)
+    kblock = block.to(cuda_device)
+    flat = torch.cat([torch.zeros(1, dtype=torch.uint8, device=cuda_device),
+                      kblock.reshape(-1)])
+    view = flat[1:].view(kblock.shape)
+    assert view.data_ptr() % 4
+    for args in ((view, skey, blen, 4, 8, 256), (kblock, skey, blen, 0, 8,
+                                                  256)):
+        got = LZ.lag_search_kernel(*(_on(a, cuda_device) for a in args))
+        torch.cuda.synchronize()
+        want = LZ.lag_search_plain(kblock, *(_on(a, cuda_device)
+                                             for a in args[1:]))
+        for g, w in zip(got, want):
+            assert_same(g, w, f"K10 K={args[3]}")
+    with pytest.raises(ValueError):
+        LZ.lag_search_kernel(kblock[:, :-2], skey[:, :-2],
+                             blen.to(cuda_device), 4, 8, 256)
+
+
+def test_k10_once_per_pass(cuda_device, monkeypatch):
+    """Every hash pass of find_matches on the card launches K10 once (3 a
+    level-3 tokenize_block, 1 a level-2 one) and never the plain lag
+    search; lz77.pairs counts B x n x depth a pass as before."""
+    calls = []
+    tokenize = E.tokenize_block
+
+    def counted(*args, **kw):
+        level = args[2] if len(args) > 2 else kw["level"]
+        calls.append((level, args[0].numel()))
+        return tokenize(*args, **kw)
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain lag search ran on the card")
+
+    monkeypatch.setattr(E, "tokenize_block", counted)
+    monkeypatch.setattr(LZ, "lag_search_plain", plain)
+    monkeypatch.setattr(LZ, "_lag_lengths", plain)
+    data = corpus(65, seed=37)[:64 * 32768 + 5000]
+    metrics.reset()
+    for level in (1, 2, 3):
+        s, m = M.compress_with_manifest(data[:200000], level=level,
+                                        device=cuda_device)
+        assert zlib.decompress(s, -15) == data[:200000]
+    assert zlib.decompress(D.compress(data, 2, device=cuda_device),
+                           -15) == data
+    D.compress_many([data[:70000], data[-40000:]], 2, device=cuda_device)
+    torch.cuda.synchronize()
+    passes = {1: 0, 2: 1, 3: 1 + len(E.L3_TIERS)}
+    depth = {1: 0, 2: E.L2_CANDS, 3: E.L3_CANDS}
+    assert {1, 2, 3} <= {lv for lv, _ in calls}
+    counts = metrics.snapshot()["counts"]
+    assert counts["kernel.K10"] == sum(passes[lv] for lv, _ in calls)
+    assert counts["lz77.pairs"] == sum(passes[lv] * depth[lv] * npos
+                                       for lv, npos in calls)
 
 
 def test_k8_kernel_matches_plain(cuda_device):

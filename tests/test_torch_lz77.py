@@ -1,7 +1,8 @@
 """Port vs reference: match finder, greedy parse, encoder planning, block
 choice and bit assembly (ops/lz77.py, ops/bitmerge.py,
 models/encoder.py stages A-B); kernel K9's design, greedy_parse_walk,
-against the plain parse."""
+against the plain parse; the kernel wrappers of K9 and K10 refuse CPU
+tensors."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +16,7 @@ from deflate_tpu_torch.models import encoder as E
 from deflate_tpu_torch.ops import bitmerge as BM
 from deflate_tpu_torch.ops import lz77 as LZ
 from torch_helpers import (BLOCK, PARSE_CASES, PARSE_TILES, assert_same,
-                           corpus, parse_case)
+                           corpus, parse_case, search_blocks)
 
 
 @pytest.fixture(scope="module")
@@ -69,6 +70,30 @@ def test_level3_find_matches_and_lazy_filter_match_reference(blocks):
     assert_same(tfl, jfl, "lazy lengths")
     assert_same(tfd, jfd, "lazy distances")
     assert (tfl == 0).sum() > (tl == 0).sum()
+
+
+@pytest.mark.parametrize("level", [2, 3])
+def test_find_matches_on_search_blocks_match_reference(level):
+    """K10's test blocks (log lines, an all-zero block, blen 0-4, 131,
+    BLOCK - 1 and BLOCK) through find_matches at level 2's and level 3's
+    settings, level 3 with a far cut of 256 or 4096 by block, against
+    the reference."""
+    data, blens = search_blocks()
+    if level == 2:
+        K, W, tiers = E.L2_CANDS, E.L2_WIN_WORDS, ()
+        cut = np.full(len(blens), E.L2_TOOFAR3, np.int32)
+    else:
+        K, W, tiers = E.L3_CANDS, E.L3_WIN_WORDS, E.L3_TIERS
+        cut = np.where(np.arange(len(blens)) % 2, 4096, 256)
+        cut = cut.astype(np.int32)
+    jl, jd = jax.jit(jax.vmap(lambda b, n, f: JLZ.find_matches(
+        b, n, K, win_words=W, tiers=tiers, toofar3=f)))(
+        jnp.asarray(data), jnp.asarray(blens), jnp.asarray(cut))
+    tl, td = LZ.find_matches(torch.from_numpy(data),
+                             torch.from_numpy(blens), K, win_words=W,
+                             tiers=tiers, toofar3=torch.from_numpy(cut))
+    assert_same(tl, jl, "match lengths")
+    assert_same(td, jd, "match distances")
 
 
 @pytest.fixture(scope="module")
@@ -200,3 +225,11 @@ def test_bit_assembly_matches_reference(wide):
     tm, tt = BM.merge_words(tw[:2], tb[:2], 2 * tw.shape[1])
     assert_same(tm, jm, "stream words")
     assert int(tt) == int(jt)
+
+
+def test_lag_search_kernel_refuses_cpu_tensors():
+    data, blens = search_blocks()
+    skey = torch.arange(BLOCK, dtype=torch.int32).expand(len(blens), -1)
+    with pytest.raises(ValueError, match="CUDA"):
+        LZ.lag_search_kernel(torch.from_numpy(data), skey,
+                             torch.from_numpy(blens), 4, 8, 256)

@@ -378,6 +378,47 @@ def parse_case(name: str, device="cpu"):
     return length.astype(np.int32), blen
 
 
+def log_lines(rng, nbytes: int) -> bytes:
+    """nbytes of access-log-like lines: a few clients, paths and
+    100-byte User-Agents, so that matches run past a 128-byte window."""
+    agents = [b"Mozilla/5.0 (X11; Linux x86_64) AppleWebKit/537.36 "
+              b"(KHTML, like Gecko) Chrome/%d.0.%d Safari/537.36" % (v, v)
+              for v in (118, 119, 120)]
+    paths = [b"/index.html", b"/static/app.js", b"/api/v1/items?page=%d"]
+    out = bytearray()
+    while len(out) < nbytes:
+        c, p, a = rng.integers(0, 6), rng.integers(0, 3), rng.integers(0, 3)
+        path = paths[p] % rng.integers(0, 9) if b"%" in paths[p] \
+            else paths[p]
+        out += (b'10.0.0.%d - - [18/Oct/2026:08:%02d:%02d +0000] "GET %s '
+                b'HTTP/1.1" 200 %d "-" "%s"\n'
+                % (c, rng.integers(0, 60), rng.integers(0, 60), path,
+                   rng.integers(100, 5000), agents[a]))
+    return bytes(out[:nbytes])
+
+
+def search_blocks():
+    """(block uint8 [15, BLOCK], blen int32 [15]) numpy arrays for the
+    lag search (K10): the mixed corpus's text, repeats, words and random
+    blocks; two blocks of log-like lines (matches at the 128-byte cap,
+    and up to the block's end) and an all-zero block; then blen 0, 1, 2,
+    3, 4, 131, BLOCK - 1 and BLOCK over log lines and text.  Zero past
+    each blen."""
+    rng = np.random.default_rng(21)
+    mixed = np.frombuffer(corpus(4, seed=21), np.uint8).reshape(4, BLOCK)
+    logs = np.frombuffer(log_lines(rng, 2 * BLOCK), np.uint8)
+    logs = logs.reshape(2, BLOCK)
+    edge = [0, 1, 2, 3, 4, 131, BLOCK - 1, BLOCK]
+    rows = [*mixed, *logs, np.zeros(BLOCK, np.uint8)]
+    rows += [logs[i % 2] if i % 4 < 2 else mixed[0] for i in range(8)]
+    blen = np.array([BLOCK, BLOCK, BLOCK, BLOCK, BLOCK, 30001, BLOCK]
+                    + edge, np.int32)
+    block = np.stack(rows)
+    for b, n in enumerate(blen):
+        block[b, n:] = 0
+    return block, blen
+
+
 def fill_case(B):
     """Every distance class (1, 2, 3 periodic; 4-8 overlapping; far),
     every word phase, short and long lengths (the reference's
