@@ -16,11 +16,12 @@ every kernel count set to 0 just before it and read just after:
      host decoder;
   C  ``compress_with_manifest(hints=False)``, then ``decode_all`` on the
      card: every block through the full block inflate (K6);
-  D  level 3: ``compress_with_manifest(level=3)`` (the default merge
-     emission, K10 on three hash passes, K9 at tile 2048, K1), then
-     ``encoder.encode_batch_with_hints(level=3, pack="kernel")`` on the
-     same blocks (packet fusion, compaction on K3, placement on K7);
-     stream, manifest and hints must be identical;
+  D  level 3: ``compress_with_manifest(level=3)`` (K10 on three hash
+     passes, K9 at tile 2048, K1); then stage C alone on the level-3
+     plans of the same blocks, ``encoder.emit_block`` (the merge
+     placement every encode path runs) against
+     ``encoder.emit_block_packed`` (packet fusion, compaction on K3,
+     placement on K7, on no encode path): the words must be identical;
   E  hinted ``decode_all`` of D's stream with DT_STAGEAB_PALLAS=0: stage
      A at every bit phase on K8, the mark automaton in torch, K3, K4 —
      and K2 not at all;
@@ -104,6 +105,7 @@ import numpy as np
 CORPUS_BYTES = 8 << 20
 SEED = 42
 KERNEL_REPS = 20
+STAGE_C_REPS = 10             # timed stage-C runs of each route, phase D
 PLAIN_PREFIX = 8              # rows the per-record plain versions run
 K6_PICK = (0, 1, 64, 65, 128, 129, 192, 193)   # two blocks of each corpus
                                                # quarter: K6's plain blocks
@@ -472,39 +474,49 @@ def main() -> int:
     say(f"C hintless device decode: {len(hman.blocks)} blocks in "
         f"{lc['K6']} K6 launches, {t_c:.3f} s = {mb / t_c:.2f} MB/s")
 
-    # ---- phase D: level 3 through the merge and kernel-pack backends ----
-    def encode_l3(pack_backend):
-        blocks, blens = M.split_blocks(data)
-        n = len(blens)
-        out = E.encode_batch_with_hints(
-            torch.from_numpy(blocks).to(dev), torch.from_numpy(blens).to(dev),
-            torch.ones(n, dtype=torch.bool, device=dev), n - 1, 3, 0,
-            pack=pack_backend)
-        return M.manifest_of(*out, blens)
-
-    ws3, wm3 = M.compress_with_manifest(data, level=3, device=dev)
-    require(encode_l3("kernel")[0] == ws3, "warm-up level-3 kernel pack")
+    # ---- phase D: level 3, then stage C alone, merge against K7's route -
+    M.compress_with_manifest(data, level=3, device=dev)     # warm-up
     (s3, m3), t_d, ld_merge, cd_merge = run_phase(
         ["K1", "K9", "K10"],
         lambda: M.compress_with_manifest(data, level=3, device=dev))
-    (ks3, km3), t_dk, ld, cd = run_phase(["K1", "K3", "K7"],
-                                         lambda: encode_l3("kernel"))
-    k1_d = cd_merge["K1"] + cd["K1"]      # K1's calls of both backends
+    k1_d = cd_merge["K1"]
+    require(zlib.decompress(s3, -15) == data, "zlib rejects the L3 stream")
+    blocks3, blens3 = M.split_blocks(data)
+    n3 = len(blens3)
+    tb3 = torch.from_numpy(blocks3).to(dev)
+    tn3 = torch.from_numpy(blens3).to(dev)
+    plans3 = E.batch_plan(tb3, tn3, 3)
+    choice3, pad3, _, _ = E.choose_blocks(
+        plans3["fixed_bits"], plans3["dyn_bits"], tn3,
+        torch.ones(n3, dtype=torch.bool, device=dev), 3)
+    args3 = (tb3, tn3, plans3, choice3, pad3,
+             torch.arange(n3, device=dev) == n3 - 1)
+    emit_routes = {"merge": lambda: E.emit_block(*args3),
+                   "K7": lambda: E.emit_block_packed(*args3)}
+    require(torch.equal(emit_routes["K7"](), emit_routes["merge"]()),
+            "warm-up stage C of the two routes")
+    w_merge, _, _, _ = run_phase([], emit_routes["merge"])
+    w_k7, _, ld, cd = run_phase(["K3", "K7"], emit_routes["K7"])
     launches["K7"] = ld["K7"]
     calls["K7"] = cd["K7"]
-    require(zlib.decompress(s3, -15) == data, "zlib rejects the L3 stream")
-    require(ks3 == s3, "level-3 streams of the two backends differ")
-    require(km3.blocks == m3.blocks and km3.hints == m3.hints
-            and km3.to_bytes() == m3.to_bytes(),
-            "level-3 offsets or hints of the two backends differ")
+    require(torch.equal(w_k7, w_merge),
+            "level-3 stage C words of the two routes differ")
+    stage_c_ms = {k: [] for k in emit_routes}
+    for r in range(STAGE_C_REPS):           # merge, K7, K7, merge, ...
+        for k in (emit_routes if r % 2 == 0 else list(emit_routes)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            emit_routes[k]()
+            torch.cuda.synchronize()
+            stage_c_ms[k].append((time.perf_counter() - t0) * 1e3)
+    stage_c_ms = {k: float(np.median(v)) for k, v in stage_c_ms.items()}
     say(f"D level-3 encode: {len(data)} bytes -> {len(s3)} bytes (ratio "
-        f"{len(s3) / len(data):.4f}); merge backend {t_d:.3f} s = "
-        f"{mb / t_d:.2f} MB/s (K1 {ld_merge['K1']}, K9 {ld_merge['K9']}, "
-        f"K10 {ld_merge['K10']}); "
-        f"kernel pack "
-        f"{t_dk:.3f} s = {mb / t_dk:.2f} MB/s (K1 {ld['K1']}, K3 "
-        f"{ld['K3']}, K7 {ld['K7']} launches); streams, offsets and "
-        f"hints identical")
+        f"{len(s3) / len(data):.4f}) in {t_d:.3f} s = {mb / t_d:.2f} MB/s "
+        f"(K1 {ld_merge['K1']}, K9 {ld_merge['K9']}, K10 "
+        f"{ld_merge['K10']}); stage C alone on its {n3} blocks, median of "
+        f"{STAGE_C_REPS}: emit_block {stage_c_ms['merge']:.3f} ms, "
+        f"emit_block_packed {stage_c_ms['K7']:.3f} ms (K3 {ld['K3']}, K7 "
+        f"{ld['K7']} launches); words identical")
 
     # ---- phase E: D's stream through the split stage A (K8) ------------
     @contextlib.contextmanager
@@ -869,7 +881,7 @@ def main() -> int:
     results[-1]["kernel_only_ms"] = sum(k1_kernel_only_ms(c)
                                         for c in calls["K1"])
     results[-1]["merge_steps"] = k1_steps
-    results[-1]["launches_d"] = [ld_merge["K1"], ld["K1"]]
+    results[-1]["launches_d"] = ld_merge["K1"]
     results[-1]["launches_g"] = launches_g
     results[-1]["launches_h"] = lh["K1"]
     log(f"K1: wrapper {results[-1]['ms']:.4f} ms, dt_tree_depths alone "

@@ -8,12 +8,12 @@ batched over blocks:
      sizes (fixed / dynamic / stored);
   B. exact block-type choice and bit offsets (stored blocks need the
      running stream phase for their byte-align padding);
-  C. emission of the chosen encoding, by one of three backends that give
-     identical words: "merge" (the default; direct bit placement,
-     ops/bitmerge.py), "scatter" (packet fusion, then a pair-fused
-     scatter, emit_block) or "kernel" (packet fusion, compaction on
-     kernel K3, placement on kernel K7, ops/pack.py); stored payloads by
-     a whole-block funnel shift;
+  C. emission of the chosen encoding by direct bit placement
+     (emit_block, ops/bitmerge.py), the one stage C of every encode entry
+     point; stored payloads by a whole-block funnel shift.  K7's route
+     (packet fusion, compaction on kernel K3, placement on kernel K7,
+     ops/pack.py) gives the same words in emit_block_packed, on no
+     encode path;
   D. bit-exact concatenation of the blocks at their offsets.
 """
 from __future__ import annotations
@@ -21,7 +21,6 @@ from __future__ import annotations
 import torch
 
 from deflate_tpu_torch.ops import bitmerge as BM
-from deflate_tpu_torch.ops import bitpack as BP
 from deflate_tpu_torch.ops import header as HDR
 from deflate_tpu_torch.ops import huffman as H
 from deflate_tpu_torch.ops import lz77 as LZ
@@ -248,31 +247,35 @@ def _choose_one(offset, fb, db, bl, lv, level: int):
 
 
 def choose_blocks(fixed_bits, dyn_bits, blens, live, level: int,
-                  phase0: int = 0):
+                  phase0: int = 0, start=None):
     """Stage B: exact per-block type choice + absolute bit offsets.
 
     A block's bits depend on the running offset only through offset
     mod 8 (stored padding), so each block is a map over the 8 entry
     phases; offsets are the prefix composition of those maps by
-    log2(B) doubling rounds.  Returns (choice, pad, offset, bits) [B]."""
+    log2(B) doubling rounds, a segmented scan that restarts at every
+    block that begins a stream (start bool [B]; None: block 0 alone).
+    Every stream begins at bit offset phase0.  Returns (choice, pad,
+    offset, bits) [B]."""
     B = fixed_bits.shape[0]
     dev = fixed_bits.device
+    if start is None:
+        start = torch.arange(B, device=dev) == 0
     ph = torch.arange(8, dtype=I32, device=dev)[None, :]
     _, _, bits8 = _choose_one(ph, fixed_bits[:, None], dyn_bits[:, None],
                               blens[:, None], live[:, None], level)
-
-    def compose(Lm, Rm):
-        """(L then R)[p] = L[p] + R[(p + L[p]) & 7]."""
-        return Lm + torch.gather(Rm, 1, ((ph + Lm) & 7).to(I64))
-
-    M = bits8
+    M, S = bits8, start
     d = 1
     while d < B:
-        top = torch.zeros((min(d, B), 8), dtype=I32, device=dev)
-        M = compose(torch.cat([top, M[:-d]]), M)
+        # (L then R)[p] = L[p] + R[(p + L[p]) & 7], within a stream only
+        Lm = torch.cat([torch.zeros((min(d, B), 8), dtype=I32, device=dev),
+                        M[:-d]])
+        M = torch.where(S[:, None], M,
+                        Lm + torch.gather(M, 1, ((ph + Lm) & 7).to(I64)))
+        S = S | torch.nn.functional.pad(S[:-d], (min(d, B), 0))
         d *= 2
     excl = torch.cat([torch.zeros((1, 8), dtype=I32, device=dev), M[:-1]])
-    offset = phase0 + excl[:, phase0 & 7]
+    offset = phase0 + torch.where(start, 0, excl[:, phase0 & 7])
     choice, pad, bits = _choose_one(offset, fixed_bits, dyn_bits, blens,
                                     live, level)
     return choice, pad, offset.to(I32), bits
@@ -375,10 +378,10 @@ def _comp64(loA, hiA, sA, loB, hiB, sB):
 
 
 def _emit_fields(block, blen, plan, choice, pad, bfinal):
-    """Stage-C planning of the scatter and kernel backends, batched: the
-    base fields plus the hierarchical <= 64-bit packet fusion (up to 16
-    consecutive tokens in one packet) and n_live [B], the live packets
-    left.  sh_sym keeps the per-symbol widths (the decode hints)."""
+    """Stage-C planning of K7's route, batched: the base fields plus the
+    hierarchical <= 64-bit packet fusion (up to 16 consecutive tokens in
+    one packet) and n_live [B], the live packets left.  sh_sym keeps the
+    per-symbol widths (the decode hints)."""
     f = _emit_fields_base(block, blen, plan, choice, pad, bfinal)
     B = block.shape[0]
     lo, hi, sh = u32(f["lo"]), u32(f["hi"]), f["sh"]
@@ -409,79 +412,11 @@ def _emit_fields(block, blen, plan, choice, pad, bfinal):
             "live_tok": live_tok, "n_live": live_tok.sum(1).to(I32)}
 
 
-def _spread(lo, hi, s):
-    """(lo, hi) << s over a 3-word window, s in [0, 32); int64 lanes."""
-    ns = 32 - torch.clamp(s, min=1)
-    c0 = (lo << s) & M32
-    c1 = torch.where(s == 0, hi, (lo >> ns) | ((hi << s) & M32))
-    c2 = torch.where(s == 0, 0, hi >> ns)
-    return c0, c1, c2
-
-
-def emit_block(blocks, blens, plan, choice, pad, bfinal):
-    """Stage C, scatter backend, batched: each block's chosen encoding as
-    int32 [B, WB] words."""
-    return _emit_scatter(blocks, blens, pad,
-                         _emit_fields(blocks, blens, plan, choice, pad,
-                                      bfinal))
-
-
-def _emit_scatter(blocks, blens, pad, f):
-    """emit_block from the _emit_fields fields f: the header by
-    pack_bits, position pairs fused into 5-word windows and scatter-added
-    at their bit offsets (the bits never overlap, so add equals or), then
-    the end-of-block code."""
-    lo, hi, sh = u32(f["lo"]), u32(f["hi"]), f["sh"].to(I64)
-    tok_off = torch.cumsum(sh, 1) - sh
-    tok_bits = tok_off[:, -1] + sh[:, -1]
-    hdr_words, hdr_bits = BP.pack_bits(
-        torch.cat([f["hdr3"], f["hv"]], 1),
-        torch.cat([f["hdr3_l"], f["hl"]], 1), WB)
-
-    off = hdr_bits.to(I64)[:, None] + tok_off
-    off0 = off[:, 0::2]
-    r0 = off0 & 31
-    a = _spread(lo[:, 0::2], hi[:, 0::2], r0)
-    d = r0 + sh[:, 0::2]                      # second packet's window offset
-    k1 = d >> 5                               # 0..2
-    b = _spread(lo[:, 1::2], hi[:, 1::2], d & 31)
-    zero = torch.zeros_like(b[0])
-    bs = [*b, zero, zero]
-
-    def at(j):                                # b[j - k1], 0 out of range
-        return torch.where(k1 == 0, bs[j] if j <= 2 else zero,
-               torch.where(k1 == 1, bs[j - 1] if 1 <= j <= 3 else zero,
-                           bs[j - 2] if j >= 2 else zero))
-
-    # 5 words: a fused-literal pair (60 + 60 bits) at phase 31 spans them
-    win = [a[0] | at(0), a[1] | at(1), a[2] | at(2), at(3), at(4)]
-    w0 = off0 >> 5
-    eob_off = hdr_bits.to(I64) + tok_bits
-    er = eob_off & 31
-    ev = u32(f["eob_v"])
-    idx = torch.cat([w0 + j for j in range(5)]
-                    + [(eob_off >> 5)[:, None], (eob_off >> 5)[:, None] + 1],
-                    1)
-    vals = torch.cat(win + [((ev << er) & M32)[:, None],
-                            torch.where(er == 0, 0,
-                                        ev >> (32 - torch.clamp(er, min=1))
-                                        )[:, None]], 1)
-    words = BP.scatter_words(WB, idx, vals)
-    words = wrap32(u32(words) + u32(hdr_words))
-    nbits = eob_off + f["eob_len"].to(I64)
-    return _finish_block(words, blocks, blens, f["stored"], pad, nbits)
-
-
 def _packet_pre(blocks, blens, plan, choice, pad, bfinal):
-    """Stage C (kernel backend) part 1, batched: the fused emission fields
-    with the end-of-block code as packet N, and each live packet's
-    compaction displacement (delta, -1 for dead lanes)."""
-    return _packets_of(_emit_fields(blocks, blens, plan, choice, pad,
-                                    bfinal))
-
-
-def _packets_of(f):
-    """_packet_pre from the _emit_fields fields f."""
+    """K7's route part 1, batched: the fused emission fields with the
+    end-of-block code as packet N, and each live packet's compaction
+    displacement (delta, -1 for dead lanes)."""
+    f = _emit_fields(blocks, blens, plan, choice, pad, bfinal)
     B = f["lo"].shape[0]
     dev = f["lo"].device
     hdr_lens = torch.cat([f["hdr3_l"], f["hl"]], 1)
@@ -516,9 +451,9 @@ def _route_packets(pre):
 
 
 def _packet_post(pre, slo, shi, ssh):
-    """Stage C (kernel backend) part 2, batched: header entries ahead of
-    the routed packets, exclusive bit offsets.  Returns (off, lo, hi
-    int32 [B, NPK], count [B] live packets, nbits [B], stored [B])."""
+    """K7's route part 2, batched: header entries ahead of the routed
+    packets, exclusive bit offsets.  Returns (off, lo, hi int32 [B, NPK],
+    count [B] live packets, nbits [B], stored [B])."""
     hdr_lo, hdr_lens = pre["hdr_lo"], pre["hdr_lens"]
     HD = hdr_lo.shape[1]
     take = PK.NPK - HD                      # >= N + 1: every live packet
@@ -532,24 +467,24 @@ def _packet_post(pre, slo, shi, ssh):
 
 
 def build_packets(blocks, blens, plan, choice, pad, bfinal):
-    """Stage C, kernel backend, up to the pack: every block's packet list
-    in the contract of ops/pack.py — (off, lo, hi, count, nbits,
-    stored)."""
-    return _packet_list(_emit_fields(blocks, blens, plan, choice, pad,
-                                     bfinal))
-
-
-def _packet_list(f):
-    """build_packets from the _emit_fields fields f."""
-    pre = _packets_of(f)
+    """K7's route up to the pack: every block's packet list in the
+    contract of ops/pack.py — (off, lo, hi, count, nbits, stored)."""
+    pre = _packet_pre(blocks, blens, plan, choice, pad, bfinal)
     return _packet_post(pre, *_route_packets(pre))
 
 
-def _emit_kernel(blocks, blens, pad, f):
-    """Stage C, kernel backend, from the _emit_fields fields f: packets
-    compacted on K3, placed on K7, then the stored payloads and the
-    end mask."""
-    off, lo, hi, counts, nbits, stored = _packet_list(f)
+def emit_block_packed(blocks, blens, plan, choice, pad, bfinal):
+    """emit_block through K7's route, the reference's pallas_pack
+    placement: packets fused, compacted on K3, placed on K7 (their plain
+    versions on the CPU), then the stored payloads and the end mask.
+    The same int32 [B, WB] words as emit_block.
+
+    No encode path calls it: on an H100 the direct bit placement of
+    emit_block encoded level 3 faster (6.71 against 5.48 MB/s on the
+    8 MiB mixed corpus).  chip_smoke.py times the two and holds K7
+    against its plain version."""
+    off, lo, hi, counts, nbits, stored = build_packets(
+        blocks, blens, plan, choice, pad, bfinal)
     words = PK.pack_blocks(counts, off, lo, hi)[:, :WB]
     return _finish_block(words, blocks, blens, stored, pad, nbits)
 
@@ -613,6 +548,19 @@ def _emit_merge_batch(blocks, blens, pad, f):
                          nbits)
 
 
+def _emit(blocks, blens, plan, choice, pad, bfinal):
+    """Stage C, batched: the base fields f and the merge placement.
+    Returns (words int32 [B, WB], f)."""
+    f = _emit_fields_base(blocks, blens, plan, choice, pad, bfinal)
+    return _emit_merge_batch(blocks, blens, pad, f), f
+
+
+def emit_block(blocks, blens, plan, choice, pad, bfinal):
+    """Stage C, batched: each block's chosen encoding as int32 [B, WB]
+    words, bits past its end zero."""
+    return _emit(blocks, blens, plan, choice, pad, bfinal)[0]
+
+
 def block_hints(sh, stored, W64cap: int = W64CAP):
     """Per-64-bit-chunk entry phases for the wavefront decoder, batched:
     hint[w] = bit phase of the first symbol starting in chunk w,
@@ -637,17 +585,8 @@ def block_hints(sh, stored, W64cap: int = W64CAP):
     return torch.where(stored[:, None], HINT_NONE, hints)
 
 
-PACKS = ("merge", "scatter", "kernel")
-
-
 def _encode(blocks, blens, live, final_idx: int, level: int, phase0: int,
-            want_hints: bool, pack: str | None = None):
-    """pack: emission backend (PACKS), None for "merge", the reference's
-    default.  The reference also picks a Huffman-tree backend per pack; the
-    port has one (K1 on the card, its plain version on the CPU)."""
-    pack = pack or "merge"
-    if pack not in PACKS:
-        raise ValueError(f"unknown pack backend {pack!r}")
+            want_hints: bool):
     B = blocks.shape[0]
     plans = batch_plan(blocks, blens, level)
     with metrics.span("encode.choose"):
@@ -656,13 +595,7 @@ def _encode(blocks, blens, live, final_idx: int, level: int, phase0: int,
             phase0)
     with metrics.span("encode.emit"):
         bfinal = torch.arange(B, device=blocks.device) == final_idx
-        if pack == "merge":
-            f = _emit_fields_base(blocks, blens, plans, choice, pad, bfinal)
-            words = _emit_merge_batch(blocks, blens, pad, f)
-        else:
-            f = _emit_fields(blocks, blens, plans, choice, pad, bfinal)
-            emit = _emit_scatter if pack == "scatter" else _emit_kernel
-            words = emit(blocks, blens, pad, f)
+        words, f = _emit(blocks, blens, plans, choice, pad, bfinal)
         words = torch.where(live[:, None], words, 0)
         # the first block's sub-byte entry phase is baked into its own bits
         out, total = BM.merge_words(words, bits, B * WB)
@@ -675,34 +608,29 @@ def _encode(blocks, blens, live, final_idx: int, level: int, phase0: int,
 
 
 def encode_batch(blocks, blens, live, final_idx: int, level: int,
-                 phase0: int = 0, pack: str | None = None):
+                 phase0: int = 0):
     """Encode B blocks into one contiguous bitstream segment.
 
     blocks uint8 [B, 32768] (zero padded), blens int32 [B], live bool [B]
     (padding blocks excluded), final_idx: index of the BFINAL block or
-    -1, phase0: absolute bit offset of the segment in the stream, pack:
-    emission backend ("merge", the default for None; "scatter";
-    "kernel"), all bit-identical.  Returns (words int32 [B*WB],
-    total_bits int32)."""
+    -1, phase0: absolute bit offset of the segment in the stream.
+    Returns (words int32 [B*WB], total_bits int32)."""
     return _encode(blocks, blens, live, final_idx, level, phase0,
-                   False, pack)[:2]
+                   False)[:2]
 
 
 def encode_batch_with_offsets(blocks, blens, live, final_idx: int,
-                              level: int, phase0: int = 0,
-                              pack: str | None = None):
+                              level: int, phase0: int = 0):
     """encode_batch plus per-block absolute offsets and bits [B]."""
     return _encode(blocks, blens, live, final_idx, level, phase0,
-                   False, pack)[:4]
+                   False)[:4]
 
 
 def encode_batch_with_hints(blocks, blens, live, final_idx: int,
-                            level: int, phase0: int = 0,
-                            pack: str | None = None):
+                            level: int, phase0: int = 0):
     """encode_batch_with_offsets plus the per-block wavefront decode
     hints int32 [B, 4224]."""
-    return _encode(blocks, blens, live, final_idx, level, phase0, True,
-                   pack)
+    return _encode(blocks, blens, live, final_idx, level, phase0, True)
 
 
 def plan_sizes(blocks, blens, live, level: int):
@@ -719,35 +647,15 @@ def encode_blocks_multi(blocks, blens, live, finals, owner, level: int):
 
     finals: bool [B], the block carries BFINAL (last block of its
     stream); owner: int32 [B], stream id per block (a stream's blocks
-    contiguous).  Each stream starts at bit phase 0: choose_blocks'
-    doubling composes the blocks' phase maps as a segmented scan that
-    restarts at every change of owner.  Every block's words come back
-    standalone (scatter emission) for the host to stitch per stream.
-    Returns (words int32 [B, WB], bits int32 [B])."""
-    B = blocks.shape[0]
-    dev = blocks.device
+    contiguous).  Each stream starts at bit phase 0 (choose_blocks'
+    scan restarts at every change of owner).  Every block's words come
+    back standalone for the host to stitch per stream.  Returns (words
+    int32 [B, WB], bits int32 [B])."""
     plans = batch_plan(blocks, blens, level)
-    fb, db = plans["fixed_bits"], plans["dyn_bits"]
-    ph = torch.arange(8, dtype=I32, device=dev)[None, :]
-    start = owner != torch.cat([torch.full((1,), -1, dtype=owner.dtype,
-                                           device=dev), owner[:-1]])
-    _, _, bits8 = _choose_one(ph, fb[:, None], db[:, None], blens[:, None],
-                              live[:, None], level)
-    # a stream's first block enters at phase 0 whatever came before
-    M = torch.where(start[:, None], bits8[:, :1], bits8)
-    S = start
-    d = 1
-    while d < B:
-        Lm = torch.cat([torch.zeros((min(d, B), 8), dtype=I32, device=dev),
-                        M[:-d]])
-        Ls = torch.cat([torch.zeros(min(d, B), dtype=torch.bool,
-                                    device=dev), S[:-d]])
-        comp = Lm + torch.gather(M, 1, ((ph + Lm) & 7).to(I64))
-        M = torch.where(S[:, None], M, comp)
-        S = S | Ls
-        d *= 2
-    excl = torch.cat([torch.zeros((1, 8), dtype=I32, device=dev), M[:-1]])
-    offset = torch.where(start, 0, excl[:, 0])
-    choice, pad, bits = _choose_one(offset, fb, db, blens, live, level)
+    start = torch.nn.functional.pad(owner[1:] != owner[:-1], (1, 0),
+                                    value=True)
+    choice, pad, _, bits = choose_blocks(plans["fixed_bits"],
+                                         plans["dyn_bits"], blens, live,
+                                         level, start=start)
     words = emit_block(blocks, blens, plans, choice, pad, finals)
     return torch.where(live[:, None], words, 0), bits

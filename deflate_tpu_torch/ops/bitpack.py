@@ -1,9 +1,9 @@
 """Parallel bit-stream assembly and inspection.
 
-Port of deflate_tpu/ops/bitpack.py.  Per-entry bit lengths -> exclusive
-prefix sum -> absolute bit offsets; each entry lands in at most two
-32-bit words by a scatter-add (bits are disjoint, so add equals or), and
-stream concatenation is the same trick one level up.  Words are int32
+Port of deflate_tpu/ops/bitpack.py.  Blocks' bit streams concatenate at
+bit granularity: exclusive prefix sum of their lengths -> absolute bit
+offsets; each word lands, shifted, in at most two 32-bit words by a
+scatter-add (bits are disjoint, so add equals or).  Words are int32
 tensors holding the reference's uint32 patterns; the arithmetic runs on
 int64 lanes, and an out-of-range word index is dropped as the
 reference's ``mode="drop"`` does (it lands in a spare column that is cut
@@ -24,26 +24,6 @@ def scatter_words(num_words: int, idx: torch.Tensor, vals: torch.Tensor):
     out = torch.zeros(idx.shape[:-1] + (num_words + 1,), dtype=I64,
                       device=idx.device)
     return wrap32(out.scatter_add_(-1, idx, vals)[..., :num_words])
-
-
-def pack_bits(values: torch.Tensor, lengths: torch.Tensor, num_words: int):
-    """Pack LSB-first bit fields into 32-bit words.
-
-    values [..., N] (masked to their lengths), lengths [..., N] (0..16, 0
-    allowed).  Returns (words int32 [..., num_words], total_bits int32
-    [...])."""
-    lengths = lengths.to(I64)
-    mask = torch.where(lengths > 0, (1 << lengths) - 1, 0)
-    vals = values.to(I64) & mask & M32
-    offs = torch.cumsum(lengths, -1) - lengths
-    total = lengths.sum(-1)
-    widx = offs >> 5
-    shift = offs & 31
-    lo = (vals << shift) & M32
-    hi = torch.where(shift == 0, 0, vals >> (32 - shift))
-    words = scatter_words(num_words, torch.cat([widx, widx + 1], -1),
-                           torch.cat([lo, hi], -1))
-    return words, total.to(I32)
 
 
 def concat_bitstreams(block_words: torch.Tensor, block_bits: torch.Tensor,

@@ -597,8 +597,9 @@ def test_k2_kernel_matches_lut(cuda_device):
 
 def test_level3_kernel_pack_and_split_decode_on_card(cuda_device,
                                                      monkeypatch):
-    """Level 3 through pack="kernel" on the card equals the CPU's default
-    backend, and the split stage-A decode round-trips it."""
+    """Level 3's stage C through K7's route (emit_block_packed: K3, then
+    K7) on the card equals emit_block's words on the card and on the
+    CPU, and the split stage-A decode round-trips a level-3 stream."""
     data = corpus(3, seed=36)[:3 * 32768 - 501]
     buf = np.frombuffer(data, np.uint8)
     blocks = np.zeros((3, 32768), np.uint8)
@@ -607,13 +608,24 @@ def test_level3_kernel_pack_and_split_decode_on_card(cuda_device,
         c = buf[b * 32768:(b + 1) * 32768]
         blocks[b, :len(c)] = c
         blens[b] = len(c)
-    args = [torch.from_numpy(blocks), torch.from_numpy(blens),
-            torch.ones(3, dtype=torch.bool)]
-    want = E.encode_batch_with_hints(*args, 2, 3, 0)
-    got = E.encode_batch_with_hints(*[x.to(cuda_device) for x in args], 2,
-                                    3, 0, pack="kernel")
-    for g, w in zip(got, want):
-        assert_same(g, w)
+
+    def stage_c_args(dev):
+        tb, tn = torch.from_numpy(blocks).to(dev), torch.from_numpy(
+            blens).to(dev)
+        plans = E.batch_plan(tb, tn, 3)
+        choice, pad, _, _ = E.choose_blocks(
+            plans["fixed_bits"], plans["dyn_bits"], tn,
+            torch.ones(3, dtype=torch.bool, device=dev), 3)
+        return tb, tn, plans, choice, pad, torch.arange(3, device=dev) == 2
+
+    want = E.emit_block(*stage_c_args("cpu"))
+    card = stage_c_args(cuda_device)
+    metrics.reset()
+    got = E.emit_block_packed(*card)
+    counts = metrics.snapshot()["counts"]
+    assert counts["kernel.K3"] == 1 and counts["kernel.K7"] == 1, counts
+    assert_same(got, E.emit_block(*card), "K7 route vs emit_block, card")
+    assert_same(got, want, "K7 route on the card vs emit_block, CPU")
     s, m = M.compress_with_manifest(data, level=3, device=cuda_device)
     assert zlib.decompress(s, -15) == data
     monkeypatch.setenv("DT_STAGEAB_PALLAS", "0")

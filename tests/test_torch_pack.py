@@ -1,9 +1,9 @@
-"""Port vs reference, the kernel and scatter emission backends: the packet
-fusion (_emit_fields), the packet stage (_packet_pre, _route_packets,
-_packet_post, build_packets), the scatter placement (emit_block), kernel
-K7's plain version (pack_blocks) and the torch form of its design
-(pack_blocks_tiles) against the Pallas kernel in interpret mode, and
-ops/bitpack.py — all with zero tolerance."""
+"""Port vs reference, stage C and K7's route: the packet fusion
+(_emit_fields), the packet stage (_packet_pre, _route_packets,
+_packet_post, build_packets), the emission (emit_block) against the
+reference's, kernel K7's plain version (pack_blocks) and the torch form
+of its design (pack_blocks_tiles) against the Pallas kernel in
+interpret mode, and ops/bitpack.py — all with zero tolerance."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -113,7 +113,7 @@ def test_packet_lists_match_reference(planned, stage):
 
 def test_emit_block_matches_reference(planned):
     want, args = planned
-    assert_same(E.emit_block(*args), want["emit"], "scatter words")
+    assert_same(E.emit_block(*args), want["emit"], "words")
 
 
 def test_pack_blocks_plain_matches_interpret(planned):
@@ -126,7 +126,7 @@ def test_pack_blocks_plain_matches_interpret(planned):
     assert got.shape == (4, PK.OUTW)
     assert_same(got, jw, "packed words")
     assert_same(PK.pack_blocks_tiles(counts, off, lo, hi), jw, "tiles")
-    # and through _finish_block these are the scatter backend's words
+    # and through _finish_block these are the reference's emit_block words
     tb, tn, _, _, pad, _ = args
     assert_same(E._finish_block(got[:, :E.WB], tb, tn, stored, pad, nbits),
                 want["emit"], "finished words")
@@ -176,20 +176,6 @@ def test_pack_blocks_tiles_matches_plain_and_interpret(case):
     want = np_i32(got)
     want[:, -1] |= spill
     assert_same(want, jw, f"{case}: tiles vs interpret")
-
-
-@pytest.mark.parametrize("batched", [False, True])
-def test_pack_bits_matches_reference(batched):
-    rng = np.random.default_rng(int(batched))
-    shape = (3, 700) if batched else (700,)
-    vals = rng.integers(-2**31, 2**31, shape).astype(np.int32)
-    lens = rng.integers(0, 17, shape).astype(np.int32)
-    fn = jax.vmap(JBP.pack_bits, (0, 0, None)) if batched else JBP.pack_bits
-    jw, jt = fn(jnp.asarray(vals), jnp.asarray(lens), 200)
-    tw, tt = BP.pack_bits(torch.from_numpy(vals), torch.from_numpy(lens),
-                          200)
-    assert_same(tw, jw, "words")
-    assert_same(tt, jt, "total bits")
 
 
 def test_concat_and_peek_bits_match_reference():

@@ -4,9 +4,10 @@
 
 Runs chip_smoke.py's 8 MiB corpus through nine paths twice — encode,
 hinted decode, foreign-stream decode (python zlib level 6, forced onto
-the card), hintless decode, level-3 encode with the default (merge)
-emission and with pack="kernel" (packet fusion, K3 compaction, K7
-placement), the hinted decode of the level-3 stream by the split
+the card), hintless decode, level-3 encode, stage C alone on the
+level-3 plans through K7's route (encoder.emit_block_packed: packet
+fusion, K3 compaction, K7 placement; on no encode path), the hinted
+decode of the level-3 stream by the split
 stage A (DT_STAGEAB_PALLAS=0: K8, then the mark automaton and
 compaction in torch), and the level-2 stream through the speculative
 decoder (models/decoder.inflate_device, torch array code, no kernel),
@@ -59,7 +60,7 @@ from deflate_tpu_torch.runtime import stitch as S  # noqa: E402
 PHASES = [(E, "_encode"), (LZ, "find_matches"), (LZ, "greedy_parse"),
           (H, "huffman_lengths_batch"), (E, "choose_blocks"),
           (E, "_emit_fields_base"), (E, "_emit_merge_batch"),
-          (E, "_emit_fields"), (E, "_packets_of"), (E, "_route_packets"),
+          (E, "_emit_fields"), (E, "_packet_pre"), (E, "_route_packets"),
           (E, "_packet_post"), (PK, "pack_blocks"), (E, "_finish_block"),
           (BM, "merge_words"), (E, "block_hints"),
           (W, "parse_headers_host"), (native, "parse_headers"),
@@ -123,15 +124,21 @@ def main() -> int:
                                                             device=dev)
         return None
 
-    def encode_l3_kernel():
-        blocks, blens = M.split_blocks(data)
-        n = len(blens)
-        out = E.encode_batch_with_hints(
-            torch.from_numpy(blocks).to(dev), torch.from_numpy(blens).to(dev),
-            torch.ones(n, dtype=torch.bool, device=dev), n - 1, 3, 0,
-            pack="kernel")
-        if M.manifest_of(*out, blens)[0] != state["s3"]:
-            raise RuntimeError("level-3 kernel-pack stream differs")
+    # stage C's operands: the level-3 plans of the corpus's blocks
+    blocks, blens = (torch.from_numpy(x).to(dev)
+                     for x in M.split_blocks(data))
+    n = len(blens)
+    plans3 = E.batch_plan(blocks, blens, 3)
+    choice3, pad3, _, _ = E.choose_blocks(
+        plans3["fixed_bits"], plans3["dyn_bits"], blens,
+        torch.ones(n, dtype=torch.bool, device=dev), 3)
+    args3 = (blocks, blens, plans3, choice3, pad3,
+             torch.arange(n, device=dev) == n - 1)
+    words3 = E.emit_block(*args3)
+
+    def emit_l3_k7():
+        if not torch.equal(E.emit_block_packed(*args3), words3):
+            raise RuntimeError("level-3 K7-route words differ")
         return None
 
     def split_decode():
@@ -154,7 +161,7 @@ def main() -> int:
             raw, len(data), device=dev, force_device=True),
         "hintless decode": lambda: M.decode_all(hs, hm, device=dev),
         "L3 encode": encode_l3,
-        "L3 kernel-pack encode": encode_l3_kernel,
+        "L3 stage C, K7 route": emit_l3_k7,
         "L3 split stage-A decode": split_decode,
         "speculative decode": lambda: DEC.inflate_device(
             state["s"], len(data), device=dev),

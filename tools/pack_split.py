@@ -1,13 +1,14 @@
-"""Where kernel K7 (the per-block bit placement of the kernel emission
-backend) spends its time, at the operands of chip_smoke.py's phase D
-(its 8 MiB corpus encoded at level 3 with pack="kernel": one launch over
-256 blocks).
+"""Where kernel K7 (the per-block bit placement of K7's emission route,
+encoder.emit_block_packed, on no encode path) spends its time, at the
+operands of chip_smoke.py's phase D (stage C of its 8 MiB corpus's
+level-3 plans through emit_block_packed: one launch over 256 blocks).
 
     python3 tools/pack_split.py [--tree DIR]
 
 --tree imports deflate_tpu_torch from DIR (for example an unpacked
-earlier commit), so two versions are measured in one call.  Times are
-CUDA-event means of 20 launches after one warm-up, in ms.  It prints the
+earlier commit that has encoder.emit_block_packed), so two versions are
+measured in one call.  Times are CUDA-event means of 20 launches after
+one warm-up, in ms.  It prints the
 card's name and power limit first, then one JSON line:
 
   ptxas         registers, spills and shared memory of each kernel of
@@ -105,19 +106,22 @@ def main() -> int:
     res = {"tree": src_tree, "card": card,
            "ptxas": ptxas(_build, "pack", names=())}
 
-    blocks, blens = M.split_blocks(data)
+    blocks, blens = (torch.from_numpy(x).to(dev)
+                     for x in M.split_blocks(data))
     n = len(blens)
+    plans = E.batch_plan(blocks, blens, 3)
+    choice, pad, _, _ = E.choose_blocks(
+        plans["fixed_bits"], plans["dyn_bits"], blens,
+        torch.ones(n, dtype=torch.bool, device=dev), 3)
 
-    def encode():
-        return E.encode_batch_with_hints(
-            torch.from_numpy(blocks).to(dev), torch.from_numpy(blens).to(dev),
-            torch.ones(n, dtype=torch.bool, device=dev), n - 1, 3, 0,
-            pack="kernel")
+    def emit():
+        return E.emit_block_packed(blocks, blens, plans, choice, pad,
+                                   torch.arange(n, device=dev) == n - 1)
 
-    encode()                                               # warm-up
+    emit()                                                 # warm-up
     fn, calls = capture(pack, "pack_blocks_kernel")
     try:
-        encode()
+        emit()
     finally:
         pack.pack_blocks_kernel = fn
     if len(calls) != 1:
