@@ -8,10 +8,11 @@ eight paths on an 8 MiB mixed corpus (256 blocks of 32 KiB), each with
 every kernel count set to 0 just before it and read just after:
 
   A  level-2 ``compress_with_manifest`` (K10, K9, K1), then hinted
-     ``decode_all`` on the card (K2-K4);
+     ``decode_all`` on the card (K2-K4, K11, K12);
   B  a foreign stream (python zlib, level 6, raw) through
      ``decompress(device=cuda, force_device=True)``: the skeleton walk,
-     then the wavefront decoder with history (K2, K3, K5); and the same
+     then the wavefront decoder with history (K2, K3, K5; K11 and K12
+     once a group of virtual blocks); and the same
      call without force_device, which the dispatcher redirects to the
      host decoder;
   C  ``compress_with_manifest(hints=False)``, then ``decode_all`` on the
@@ -75,6 +76,7 @@ A, D and G against the torch form of its design (greedy_parse_walk), and
 on phase D's tile-2048 call against the plain version too; K10 on
 phase D's three level-3 passes and phase A's level-2 pass against its
 plain version, with the (position, candidate) pairs it compares a ns;
+K11 and K12 on every call of phase B against their plain versions;
 K6's result
 adds its time on each corpus quarter's 64 blocks alone (quarter_ms).
 Phase H's calls of K1-K4 are held the same way: K1's and K3's in full
@@ -333,6 +335,8 @@ def main() -> int:
         "K8": (wave_stagea, "decode_positions_kernel"),
         "K9": (lz77, "greedy_parse_kernel"),
         "K10": (lz77, "lag_search_kernel"),
+        "K11": (wave, "resolve_litval_kernel"),
+        "K12": (wave, "merge_match_runs_kernel"),
     }
 
     def launched_since_reset(k: str) -> int:
@@ -400,7 +404,8 @@ def main() -> int:
     say(f"A device decode: {len(data)} bytes in {t_dec:.3f} s = "
         f"{mb / t_dec:.2f} MB/s")
 
-    # ---- phase B: foreign stream, skeleton walk + wave decode (K2/K3/K5)
+    # ---- phase B: foreign stream, skeleton walk + wave decode (K2, K3,
+    # K5, K11, K12)
     plan = WD.skeleton_plan(raw)
     flags = np.asarray(plan["flags"])       # K5's rows, in order
 
@@ -412,11 +417,11 @@ def main() -> int:
             "the foreign plan lacks history or stored virtual blocks")
     st = {}
     out, t_b, lb, cb = run_phase(
-        ["K2", "K3", "K5"],
+        ["K2", "K3", "K5", "K11", "K12"],
         lambda: D.decompress(raw, len(data), device=dev, force_device=True,
                              stats=st))
-    launches.update({"K5": lb["K5"]})
-    calls["K5"] = cb["K5"]
+    launches.update({k: lb[k] for k in ("K5", "K11", "K12")})
+    calls.update({k: cb[k] for k in ("K5", "K11", "K12")})
     require(out == data, "foreign decode differs from the corpus")
     require(st["device_path"] == "wave", f"foreign path {st}")
     st_host = {}
@@ -429,7 +434,8 @@ def main() -> int:
     say(f"B foreign zlib-6 stream: {len(raw)} bytes (ratio "
         f"{len(raw) / len(data):.4f}), {len(flags)} virtual blocks "
         f"({flag_counts(flags)}); K2 {lb['K2']}, "
-        f"K3 {lb['K3']}, K5 {lb['K5']} launches")
+        f"K3 {lb['K3']}, K5 {lb['K5']}, K11 {lb['K11']}, K12 {lb['K12']} "
+        f"launches")
     say(f"B device decode (force_device): {t_b:.3f} s = {mb / t_b:.2f} "
         f"MB/s; redirected host decode: {t_host:.3f} s = "
         f"{mb / t_host:.2f} MB/s")
@@ -1251,6 +1257,27 @@ def main() -> int:
         f"{r10['plain_ms']:.4f}; level 2 {r10['ms_level2']:.4f} "
         f"({r10['pairs_per_ns_level2']:.2f} pairs/ns), plain "
         f"{r10['plain_ms_level2']:.4f} [{card}]")
+
+    # K11 and K12 on every call of phase B (one of each a wave_decode)
+    k11, k12 = calls["K11"], calls["K12"]
+    require(len(k11) == len(k12) == launches["K11"] == launches["K12"],
+            f"K11 ran {len(k11)} times in phase B, K12 {len(k12)}")
+    check(f"K11 resolve_litval (phase B's {len(k11)} wave_decode calls, "
+          f"{k11[0][0].shape[0]} x {k11[0][0].shape[1]} lanes each; bound: "
+          f"two int32 reads and one write a lane)", "K11",
+          "deflate_tpu_torch/csrc/wave_glue.cu",
+          "none: XLA code, deflate_tpu/ops/wave.py:716 resolve_litval",
+          wave.resolve_litval_kernel, wave.resolve_litval_plain, k11)
+    check(f"K12 merge_match_runs (phase B's {len(k12)} wave_decode calls, "
+          f"{k12[0][0].shape[0]} x {k12[0][0].shape[1]} records each; "
+          f"bound: two int32 reads and two writes a record)", "K12",
+          "deflate_tpu_torch/csrc/wave_glue.cu",
+          "none: XLA code, deflate_tpu/ops/wave.py:744 merge_match_runs",
+          wave.merge_match_runs_kernel, wave.merge_match_runs_plain, k12)
+    for r in results[-2:]:
+        log(f"{r['name'][:3]}: {r['ms']:.4f} ms over {len(k11)} calls, "
+            f"plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+            f"[{card}]")
 
     bad = [r["name"] for r in results if r["max_abs_err"] != 0]
     for r in results:

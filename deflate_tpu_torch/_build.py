@@ -49,6 +49,8 @@ SIGNATURES = {
                                             I, I, P]},
     "parse": {"dt_greedy_parse": [P, P, P, P, I, I, I, I, P]},
     "lag_search": {"dt_lag_search": [P, P, P, P, P, P, I, I, I, I, P]},
+    "wave_glue": {"dt_resolve_litval": [P, P, P, P, I, I, P],
+                  "dt_merge_runs": [P, P, P, P, P, I, I, P]},
 }
 
 _lock = threading.Lock()

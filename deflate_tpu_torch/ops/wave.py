@@ -14,9 +14,11 @@ references):
   C      : chunk-level exclusive sums (output offsets, symbol indices).
   D      : route chunk-compact symbol records to dense slots — kernel K3
            (ops/wave_route.py).
-  E      : literal byte values by 256-bit membership-mask rank-select.
+  E      : literal byte values by 256-bit membership-mask rank-select
+           — kernel K11 (csrc/wave_glue.cu).
   F      : route records to output-byte slots (K3, rightward); match
-           records compacted and chains at one distance merged (K3).
+           records compacted (K3), then chains at one distance merged
+           and the records re-compacted — kernel K12 (csrc/wave_glue.cu).
   G      : LZ match fill — kernel K4 (ops/wave_fill.py), in
            models/wave_decoder.py.
 
@@ -31,6 +33,7 @@ import os
 import numpy as np
 import torch
 
+from deflate_tpu_torch import _build
 from deflate_tpu_torch.models import host_inflate as HI
 from deflate_tpu_torch.utils import metrics
 from deflate_tpu_torch.utils import tables as T
@@ -620,77 +623,150 @@ def _unpack_marks(Mlo, Mhi, W64: int):
 
 
 # ====================== stages C-F: assembly ==============================
+RUN_TILE = 256          # merge_match_runs' rounds pair records only
+                        # inside aligned tiles of this many
+
+
 def resolve_litval(len_, r_rel, litmask):
     """Literal byte value = r_rel-th set bit of the 256-bit literal
-    membership mask for code length len_; litmask int32 [B, 16, 8]."""
+    membership mask for code length len_; litmask int32 [B, 16, 8].
+    CUDA tensors run kernel K11, CPU tensors the plain version."""
     with metrics.span("wave.resolve_litval"):
-        B = len_.shape[0]
-        shape = (B,) + (1,) * (len_.ndim - 1)
-        mw = [torch.zeros_like(len_) for _ in range(8)]
-        for l in range(1, 16):
-            hit = len_ == l
-            for q in range(8):
-                mw[q] = torch.where(hit, litmask[:, l, q].reshape(shape),
-                                    mw[q])
-        j = r_rel
-        acc = torch.zeros_like(j)
-        found = torch.zeros(j.shape, dtype=torch.bool, device=j.device)
-        word = torch.zeros_like(j)
-        jrel = torch.zeros_like(j)
-        wq = torch.zeros_like(j)
+        fn = resolve_litval_kernel if len_.is_cuda else resolve_litval_plain
+        return fn(len_, r_rel, litmask)
+
+
+def resolve_litval_plain(len_, r_rel, litmask):
+    """The plain version of K11: for len_ outside 1..15, or r_rel at or
+    past the mask's popcount, the deterministic garbage K11 repeats."""
+    B = len_.shape[0]
+    shape = (B,) + (1,) * (len_.ndim - 1)
+    mw = [torch.zeros_like(len_) for _ in range(8)]
+    for l in range(1, 16):
+        hit = len_ == l
         for q in range(8):
-            pc = popcount32(mw[q])
-            sel = (~found) & (j < acc + pc)
-            word = torch.where(sel, mw[q], word)
-            jrel = torch.where(sel, j - acc, jrel)
-            wq = torch.where(sel, q, wq)
-            found = found | sel
-            acc = acc + pc
-        return (wq << 5) + select_bit32(word, jrel)
+            mw[q] = torch.where(hit, litmask[:, l, q].reshape(shape),
+                                mw[q])
+    j = r_rel
+    acc = torch.zeros_like(j)
+    found = torch.zeros(j.shape, dtype=torch.bool, device=j.device)
+    word = torch.zeros_like(j)
+    jrel = torch.zeros_like(j)
+    wq = torch.zeros_like(j)
+    for q in range(8):
+        pc = popcount32(mw[q])
+        sel = (~found) & (j < acc + pc)
+        word = torch.where(sel, mw[q], word)
+        jrel = torch.where(sel, j - acc, jrel)
+        wq = torch.where(sel, q, wq)
+        found = found | sel
+        acc = acc + pc
+    return (wq << 5) + select_bit32(word, jrel)
+
+
+@functools.lru_cache(maxsize=None)
+def _glue_entry(name: str):
+    """The ctypes function of csrc/wave_glue.cu's `name`, resolved once."""
+    return getattr(_build.lib("wave_glue"), name)
+
+
+def resolve_litval_kernel(len_, r_rel, litmask):
+    """K11 on the card: same contract as resolve_litval_plain, for len_
+    and r_rel of one shape [B, ...] (one row a block: the trailing
+    dimensions are flattened)."""
+    if (len_.ndim < 1 or r_rel.shape != len_.shape
+            or tuple(litmask.shape) != (len_.shape[0], 16, 8)):
+        raise ValueError(f"K11 takes len_ and r_rel of one shape [B, ...] "
+                         f"and litmask [B, 16, 8]; got {tuple(len_.shape)},"
+                         f" {tuple(r_rel.shape)}, {tuple(litmask.shape)}")
+    len_, r_rel = len_.contiguous(), r_rel.contiguous()
+    litmask = litmask.contiguous()
+    dev = _build.require_cuda(len_, r_rel, litmask)
+    B = len_.shape[0]
+    out = torch.empty_like(len_)
+    if out.numel():
+        _build.check(_glue_entry("dt_resolve_litval")(
+            len_.data_ptr(), r_rel.data_ptr(), litmask.data_ptr(),
+            out.data_ptr(), B, out.numel() // B, _build.stream_ptr(dev)),
+            "dt_resolve_litval")
+        metrics.count("kernel.K11")
+    return out
 
 
 def merge_match_runs(rec0, rec1):
-    """Fuse adjacent same-distance match records into run records (eight
-    halving rounds; a run at one distance writes the same bytes as its
-    pieces), then re-compact with kernel K3.  rec0 = opos | len3<<16
-    (len3 grows to 16 bits), rec1 = dist.  Returns (rec0, rec1,
-    nmatch)."""
+    """Fuse adjacent same-distance match records into run records (a run
+    at one distance writes the same bytes as its pieces), then compact
+    the records left.  rec0 = opos | len3<<16 (len3 grows to 16 bits),
+    rec1 = dist, [B, N] with N a multiple of RUN_TILE.  Returns (rec0,
+    rec1, nmatch).  CUDA tensors run kernel K12, CPU tensors the plain
+    version."""
     with metrics.span("wave.merge_match_runs"):
-        from deflate_tpu_torch.ops.wave_route import route
+        fn = merge_match_runs_kernel if rec0.is_cuda \
+            else merge_match_runs_plain
+        return fn(rec0, rec1)
 
-        B = rec0.shape[0]
-        span = (rec0 >= 0).to(I32)
-        L0, D = rec0, rec1
-        for lvl in range(8):
-            w = 1 << lvl
-            l0 = L0.reshape(B, -1, 2 * w).clone()
-            dd = D.reshape(B, -1, 2 * w).clone()
-            sp = span.reshape(B, -1, 2 * w).clone()
-            lef0, rig0 = l0[:, :, 0].clone(), l0[:, :, w].clone()
-            can = ((sp[:, :, 0] == w) & (sp[:, :, w] > 0)
-                   & (dd[:, :, 0] == dd[:, :, w]) & (dd[:, :, 0] > 0)
-                   & ((rig0 & 0xFFFF)
-                      == (lef0 & 0xFFFF) + srl(lef0, 16) + 3))
-            mlen3 = srl(lef0, 16) + srl(rig0, 16) + 3
-            l0[:, :, 0] = torch.where(can, (lef0 & 0xFFFF) | (mlen3 << 16),
-                                      lef0)
-            l0[:, :, w] = torch.where(can, -1, rig0)
-            dd[:, :, w] = torch.where(can, 0, dd[:, :, w])
-            sp0 = sp[:, :, 0].clone()
-            sp[:, :, 0] = torch.where(can, sp0 + sp[:, :, w], sp0)
-            sp[:, :, w] = torch.where(can, 0, sp[:, :, w])
-            L0 = l0.reshape(B, -1)
-            D = dd.reshape(B, -1)
-            span = sp.reshape(B, -1)
-        lv = (L0 >= 0).to(I32)
-        rank = exclusive(lv, 1)
-        lane = torch.arange(L0.shape[1], dtype=I32, device=L0.device)[None, :]
-        dmv = torch.where(lv > 0, lane - rank, -1)
-        (L0, D), dmo = route([L0, D], dmv, int(L0.shape[1] - 1).bit_length(),
-                             left=True)
-        L0 = torch.where(dmo == 0, L0, -1)
-        D = torch.where(dmo == 0, D, 0)
-        return L0, D, lv.sum(1).to(I32)
+
+def merge_match_runs_plain(rec0, rec1):
+    """The plain version of K12: eight halving rounds, then a
+    re-compaction on the route (K3 for CUDA tensors)."""
+    from deflate_tpu_torch.ops.wave_route import route
+
+    B = rec0.shape[0]
+    span = (rec0 >= 0).to(I32)
+    L0, D = rec0, rec1
+    for lvl in range(8):
+        w = 1 << lvl
+        l0 = L0.reshape(B, -1, 2 * w).clone()
+        dd = D.reshape(B, -1, 2 * w).clone()
+        sp = span.reshape(B, -1, 2 * w).clone()
+        lef0, rig0 = l0[:, :, 0].clone(), l0[:, :, w].clone()
+        can = ((sp[:, :, 0] == w) & (sp[:, :, w] > 0)
+               & (dd[:, :, 0] == dd[:, :, w]) & (dd[:, :, 0] > 0)
+               & ((rig0 & 0xFFFF)
+                  == (lef0 & 0xFFFF) + srl(lef0, 16) + 3))
+        mlen3 = srl(lef0, 16) + srl(rig0, 16) + 3
+        l0[:, :, 0] = torch.where(can, (lef0 & 0xFFFF) | (mlen3 << 16),
+                                  lef0)
+        l0[:, :, w] = torch.where(can, -1, rig0)
+        dd[:, :, w] = torch.where(can, 0, dd[:, :, w])
+        sp0 = sp[:, :, 0].clone()
+        sp[:, :, 0] = torch.where(can, sp0 + sp[:, :, w], sp0)
+        sp[:, :, w] = torch.where(can, 0, sp[:, :, w])
+        L0 = l0.reshape(B, -1)
+        D = dd.reshape(B, -1)
+        span = sp.reshape(B, -1)
+    lv = (L0 >= 0).to(I32)
+    rank = exclusive(lv, 1)
+    lane = torch.arange(L0.shape[1], dtype=I32, device=L0.device)[None, :]
+    dmv = torch.where(lv > 0, lane - rank, -1)
+    (L0, D), dmo = route([L0, D], dmv, int(L0.shape[1] - 1).bit_length(),
+                         left=True)
+    L0 = torch.where(dmo == 0, L0, -1)
+    D = torch.where(dmo == 0, D, 0)
+    return L0, D, lv.sum(1).to(I32)
+
+
+def merge_match_runs_kernel(rec0, rec1):
+    """K12 on the card: same contract as merge_match_runs_plain.  One
+    allocation holds the three outputs; they are views of it."""
+    if rec0.ndim != 2 or rec1.shape != rec0.shape \
+            or rec0.shape[1] % RUN_TILE:
+        raise ValueError(f"K12 takes rec0 and rec1 of one shape [B, N], N "
+                         f"a multiple of {RUN_TILE}; got "
+                         f"{tuple(rec0.shape)}, {tuple(rec1.shape)}")
+    rec0, rec1 = rec0.contiguous(), rec1.contiguous()
+    dev = _build.require_cuda(rec0, rec1)
+    B, N = rec0.shape
+    buf = torch.empty(B * (2 * N + 1), dtype=I32, device=dev)
+    out0, out1 = buf[:2 * B * N].view(2, B, N).unbind(0)
+    nmatch = buf[2 * B * N:]
+    if B:
+        _build.check(_glue_entry("dt_merge_runs")(
+            rec0.data_ptr(), rec1.data_ptr(), out0.data_ptr(),
+            out1.data_ptr(), nmatch.data_ptr(), B, N,
+            _build.stream_ptr(dev)), "dt_merge_runs")
+        metrics.count("kernel.K12")
+    return out0, out1, nmatch
 
 
 def wave_decode(nwords, hints, out_expect, md, W64: int, stop_bit=None,

@@ -31,8 +31,8 @@ from deflate_tpu_torch.runtime import manifest as M
 from deflate_tpu_torch.utils import metrics
 from torch_helpers import (NM, PACK_CASES, PARSE_CASES,  # noqa: F401
                            PARSE_TILES, ROUTE_CASES, assert_same, corpus,
-                           cuda_device, fill_case, hist_case,
-                           long_code_case, long_match_streams,
+                           cuda_device, fill_case, hist_case, litval_case,
+                           long_code_case, long_match_streams, merge_case,
                            monotone_instance, pack_case, parse_case,
                            random_code_case, route_case, search_blocks)
 
@@ -508,6 +508,103 @@ def test_k10_once_per_pass(cuda_device, monkeypatch):
     assert counts["kernel.K10"] == sum(passes[lv] for lv, _ in calls)
     assert counts["lz77.pairs"] == sum(passes[lv] * depth[lv] * npos
                                        for lv, npos in calls)
+
+
+def _glue_operands_of_a_decode(dev, monkeypatch, name: str) -> list:
+    """The operands (on the CPU) of every `name`_kernel call of a forced
+    decode of a zlib-6 stream on the card: the mixed corpus, whose
+    repeated quarter gives chains of matches at one distance."""
+    data = corpus(8, seed=39)
+    kernel = getattr(W, name + "_kernel")
+    ops = []
+
+    def kept(*args):
+        ops.append(tuple(a.cpu() for a in args))
+        return kernel(*args)
+
+    monkeypatch.setattr(W, name + "_kernel", kept)
+    out = D.decompress(deflate_raw(data, 6), len(data), device=dev,
+                       force_device=True)
+    monkeypatch.setattr(W, name + "_kernel", kernel)
+    assert out == data and ops
+    return ops
+
+
+def test_k11_kernel_matches_plain(cuda_device, monkeypatch):
+    """K11 against resolve_litval_plain with zero tolerance, on the card
+    and on the CPU: every (len_, r_rel) of 0..15 x 0..511 and negative
+    ranks over masks with bit 31 set in some words and empty words
+    (litval_case), the same lanes as [B, 4, n/4], and the stage-E
+    operands of every wave_decode of a forced zlib-6 decode."""
+    len_, r_rel, mask = (torch.from_numpy(a) for a in litval_case())
+    B, n = len_.shape
+    ops = [(len_, r_rel, mask),
+           (len_.reshape(B, 4, n // 4), r_rel.reshape(B, 4, n // 4), mask)]
+    ops += _glue_operands_of_a_decode(cuda_device, monkeypatch,
+                                      "resolve_litval")
+    for i, args in enumerate(ops):
+        on = [a.to(cuda_device) for a in args]
+        got = W.resolve_litval_kernel(*on)
+        card = W.resolve_litval_plain(*on)
+        torch.cuda.synchronize()
+        assert_same(got, card, f"K11 operands {i} vs the card's plain")
+        assert_same(got, W.resolve_litval_plain(*args),
+                    f"K11 operands {i} vs the CPU's plain")
+
+
+def test_k12_kernel_matches_plain(cuda_device, monkeypatch):
+    """K12 against merge_match_runs_plain with zero tolerance over the
+    whole [B, NM] (fill included) and nmatch, on the card (its route on
+    K3) and on the CPU: merge_case's rows (chains across 256-record
+    tiles, an empty and a full row, distance 0, holes, merged lengths
+    past bit 31, random words) and the records of every wave_decode of
+    a forced zlib-6 decode."""
+    ops = [tuple(torch.from_numpy(a) for a in merge_case())]
+    ops += _glue_operands_of_a_decode(cuda_device, monkeypatch,
+                                      "merge_match_runs")
+    for i, args in enumerate(ops):
+        on = [a.to(cuda_device) for a in args]
+        got = W.merge_match_runs_kernel(*on)
+        card = W.merge_match_runs_plain(*on)
+        torch.cuda.synchronize()
+        for g, c, w, what in zip(got, card, W.merge_match_runs_plain(*args),
+                                 ("rec0", "rec1", "nmatch")):
+            assert_same(g, c, f"K12 operands {i} {what} vs the card's plain")
+            assert_same(g, w, f"K12 operands {i} {what} vs the CPU's plain")
+    assert int(ops[-1][0].ge(0).sum()) > int(got[2].sum())   # runs merged
+
+
+def test_k11_k12_once_per_wave_decode(cuda_device, monkeypatch):
+    """Every wave_decode on the card launches K11 once and K12 once and
+    never runs their plain versions: a forced decode of a zlib-6 stream
+    of 72 blocks (two groups of virtual blocks) and a hinted decode_all
+    (one wave_decode a bucket)."""
+    calls = []
+    wave_decode = W.wave_decode
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape[0])
+        return wave_decode(*args, **kw)
+
+    def plain(*args, **kw):
+        raise AssertionError("a plain C-F glue version ran on the card")
+
+    monkeypatch.setattr(W, "wave_decode", counted)
+    monkeypatch.setattr(W, "resolve_litval_plain", plain)
+    monkeypatch.setattr(W, "merge_match_runs_plain", plain)
+    data = corpus(72, seed=38)
+    raw = deflate_raw(data, 6)
+    s, m = M.compress_with_manifest(data[:300000], level=2,
+                                    device=cuda_device)
+    metrics.reset()
+    assert D.decompress(raw, len(data), device=cuda_device,
+                        force_device=True) == data
+    n_forced = len(calls)
+    assert M.decode_all(s, m, device=cuda_device) == data[:300000]
+    torch.cuda.synchronize()
+    counts = metrics.snapshot()["counts"]
+    assert n_forced >= 2 and len(calls) > n_forced
+    assert counts["kernel.K11"] == counts["kernel.K12"] == len(calls)
 
 
 def test_k8_kernel_matches_plain(cuda_device):

@@ -283,9 +283,10 @@ def test_lz77_self_times_sum_to_the_outer_lz77_spans(data, level):
 def test_kernel_counters_on_phase_a(cuda_device):  # noqa: F811
     """chip_smoke's phase A (the 8 MiB corpus at seed 42: a level-2
     manifest encode, then its hinted decode) launches K1 3 times, K2 3,
-    K3 12 and K4 3, as its module counters counted before, K9 once (one
-    tokenize_block) and K10 once (its one hash pass); the copies are
-    counted on the card."""
+    K3 9 and K4 3 (K3 three a wave_decode: its merge re-compaction is
+    K12's), K9 once (one tokenize_block), K10 once (its one hash pass),
+    and K11 and K12 once a wave_decode; the copies are counted on the
+    card."""
     from chip_smoke import CORPUS_BYTES, SEED, make_corpus
     import numpy as np
 
@@ -298,7 +299,8 @@ def test_kernel_counters_on_phase_a(cuda_device):  # noqa: F811
     torch.cuda.synchronize()
     c = metrics.snapshot()["counts"]
     kernels = {k: v for k, v in c.items() if k.startswith("kernel.")}
-    assert kernels == {"kernel.K1": 3, "kernel.K2": 3, "kernel.K3": 12,
-                       "kernel.K4": 3, "kernel.K9": 1, "kernel.K10": 1}
+    assert kernels == {"kernel.K1": 3, "kernel.K2": 3, "kernel.K3": 9,
+                       "kernel.K4": 3, "kernel.K9": 1, "kernel.K10": 1,
+                       "kernel.K11": 3, "kernel.K12": 3}
     assert c["copy.h2d"] >= 3 and c["copy.d2h"] >= 5
     assert c["copy.h2d_bytes"] >= len(data)

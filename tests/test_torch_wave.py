@@ -18,8 +18,8 @@ from deflate_tpu_torch.ops import wave_route as WR
 from deflate_tpu_torch.ops import wave_stagea as WS
 from deflate_tpu_torch.runtime import manifest as M
 from test_ccap_overflow import _craft_stream
-from torch_helpers import (assert_same, corpus, fill_case,
-                           monotone_instance)
+from torch_helpers import (assert_same, corpus, fill_case, litval_case,
+                           merge_case, monotone_instance)
 
 
 @pytest.fixture(scope="module")
@@ -167,3 +167,33 @@ def test_merge_match_runs_matches_reference():
         n = int(jn[b])
         assert_same(t0[b, :n], j0[b, :n], "rec0")
         assert_same(t1[b, :n], j1[b, :n], "rec1")
+
+
+def test_resolve_litval_matches_reference():
+    """The plain version of K11 against the reference on every (len_,
+    r_rel) of 0..15 x 0..511 and negative ranks, masks with bit 31 set
+    and empty words: the garbage past a mask's popcount included."""
+    len_, r_rel, mask = litval_case()
+    want = JW.resolve_litval(jnp.asarray(len_), jnp.asarray(r_rel),
+                             jnp.asarray(mask))
+    got = W.resolve_litval(torch.from_numpy(len_), torch.from_numpy(r_rel),
+                           torch.from_numpy(mask))
+    assert_same(got, want, "literal values")
+
+
+def test_merge_match_runs_cases_match_reference():
+    """The plain version of K12 against the reference on merge_case's
+    rows (chains across tiles, empty and full rows, distance 0, holes,
+    merged lengths past bit 31, random words): nmatch and the live
+    records; past nmatch the port holds -1 and 0."""
+    rec0, rec1 = merge_case()
+    j0, j1, jn = JW.merge_match_runs(jnp.asarray(rec0), jnp.asarray(rec1),
+                                     True, route_pallas)
+    t0, t1, tn = W.merge_match_runs(torch.from_numpy(rec0),
+                                    torch.from_numpy(rec1))
+    assert_same(tn, jn, "nmatch")
+    for b in range(rec0.shape[0]):
+        n = int(jn[b])
+        assert_same(t0[b, :n], j0[b, :n], f"rec0 row {b}")
+        assert_same(t1[b, :n], j1[b, :n], f"rec1 row {b}")
+        assert bool((t0[b, n:] == -1).all() and (t1[b, n:] == 0).all())

@@ -446,6 +446,68 @@ def fill_case(B):
     return lit, rec0, rec1, nmatch
 
 
+def litval_case(B: int = 4):
+    """Operands of resolve_litval (K11): every (len_, r_rel) pair of
+    0..15 x 0..511 in each of B rows, shuffled by row, and then negative
+    ranks; litmask [B, 16, 8] random words with bit 31 set in a third,
+    a quarter empty, an all-empty length (row 0, length 5) and an
+    all-ones one (row 1, length 9).  Returns (len_, r_rel [B, 8292],
+    litmask) int32 numpy arrays."""
+    rng = np.random.default_rng(23)
+    mask = rng.integers(0, 2**31, (B, 16, 8), dtype=np.int64)
+    mask[rng.random(mask.shape) < 1 / 3] |= 1 << 31
+    mask[rng.random(mask.shape) < 1 / 4] = 0
+    mask[0, 5] = 0
+    mask[1, 9] = 0xFFFFFFFF
+    mask = (mask - ((mask >= 1 << 31) << 32)).astype(np.int32)
+    lens, ranks = np.meshgrid(np.arange(16), np.arange(512), indexing="ij")
+    pairs = np.stack([lens.ravel(), ranks.ravel()], 1)
+    rows = [pairs[rng.permutation(len(pairs))] for _ in range(B)]
+    tail = np.stack([rng.integers(0, 16, 100),
+                     rng.integers(-2**31, 0, 100)], 1)
+    both = np.stack([np.concatenate([r, tail]) for r in rows])
+    return (both[:, :, 0].astype(np.int32), both[:, :, 1].astype(np.int32),
+            mask)
+
+
+MERGE_ROWS = ("chains", "empty", "full", "dist0", "holes", "wide",
+              "random")
+
+
+def merge_case():
+    """Match records for merge_match_runs (K12), one [NM] row a kind of
+    MERGE_ROWS: chains of back-to-back records at one distance, mixed
+    with gaps and a second distance, runs crossing 256-record tiles
+    (chains); no record (empty); every slot live, one chain of 3-byte
+    records at distance 1 (full); back-to-back records at distance 0,
+    which never merge (dist0); live records scattered among empty slots
+    with stale distances (holes); pairs whose merged length reaches
+    bit 31 of rec0, so the merged record reads empty (wide); random
+    int32 words (random).  Returns (rec0, rec1) int32 [7, NM]."""
+    rng = np.random.default_rng(29)
+    rec0 = np.full((len(MERGE_ROWS), NM), -1, np.int64)
+    rec1 = np.zeros((len(MERGE_ROWS), NM), np.int64)
+    o = 0
+    for m in range(NM - 100):
+        ln = int(rng.integers(3, 12))
+        rec0[0, m] = (o & 0xFFFF) | ((ln - 3) << 16)
+        rec1[0, m] = 5 if rng.random() < 0.9 else 300
+        o += ln + (0 if rng.random() < 0.98 else 1)
+    rec0[2] = (np.arange(NM) * 3) & 0xFFFF
+    rec1[2] = 1
+    rec0[3] = np.arange(NM) * 3 & 0xFFFF
+    live = rng.random(NM) < 0.5
+    rec0[4] = np.where(live, (np.arange(NM) * 4) & 0xFFFF, -1)
+    rec1[4] = rng.integers(0, 3, NM)
+    rec0[5, 0::2] = 20000 << 16
+    rec0[5, 1::2] = 20003 | (20000 << 16)
+    rec1[5] = 3
+    rec0[6] = rng.integers(-2**31, 2**31, NM)
+    rec1[6] = rng.integers(-2**31, 2**31, NM)
+    rec1[6, ::2] = rng.integers(-1, 3, NM // 2)
+    return rec0.astype(np.int32), rec1.astype(np.int32)
+
+
 def hist_case():
     """Rows of a foreign-stream plan in stream order for the ordered fill
     with history (K5): row 0 holds every distance class (fill_case),
