@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from deflate_tpu_torch.utils import metrics
+
 
 class PallasDecodeError(Exception):
     pass
@@ -54,9 +56,10 @@ def inflate_manifest(stream: bytes, blocks, device="cuda") -> bytes:
             raise PallasDecodeError(
                 f"block {s + bad}: err={int(err[bad])} "
                 f"produced={int(produced[bad])} want={int(want[bad])}")
-        for i in range(o.shape[0]):
-            parts.append(o[i, :want[i]].tobytes())
-    return b"".join(parts)
+        with metrics.span("decode.to_host"):
+            parts.extend(o[i, :n].tobytes() for i, n in enumerate(want))
+    with metrics.span("decode.to_host"):
+        return b"".join(parts)
 
 
 def inflate_stream(stream: bytes, device="cuda") -> bytes:

@@ -479,13 +479,21 @@ def inflate_blocks(stream: bytes, bit_offsets, device="cuda"):
 
     bit_offsets: absolute bit position of each block's BFINAL bit.
     Returns numpy (out uint8 [B, 32768], produced int32 [B], err int32
-    [B], end_bit int64 [B] absolute bit position after each block)."""
-    words, start_w, bit0, avail = prepare_blocks(stream, bit_offsets)
+    [B], end_bit int64 [B] absolute bit position after each block).
+
+    Spans: decode.windows (the operands), decode.to_device (their copies),
+    decode.block_inflate (K6, or the plain version on the CPU),
+    decode.to_host (status and rows back)."""
+    with metrics.span("decode.windows"):
+        words, start_w, bit0, avail = prepare_blocks(stream, bit_offsets)
     dev = _build.torch_device(device)
-    out, status = inflate_blocks_op(
-        *(torch.from_numpy(x).to(dev)
-          for x in (words, start_w, bit0, avail, make_statics())))
-    status = status.cpu().numpy()
+    with metrics.span("decode.to_device"):
+        ops = [metrics.to_device(x, dev)
+               for x in (words, start_w, bit0, avail, make_statics())]
+    with metrics.span("decode.block_inflate"):
+        out, status = inflate_blocks_op(*ops)
+    with metrics.span("decode.to_host"):
+        status = metrics.to_host(status).numpy()
+        out = metrics.to_host(out).numpy().view(np.uint8)
     end_bit = 32 * start_w.astype(np.int64) + status[:, 2].astype(np.int64)
-    return (out.cpu().numpy().view(np.uint8), status[:, 0], status[:, 1],
-            end_bit)
+    return out, status[:, 0], status[:, 1], end_bit

@@ -273,7 +273,9 @@ def decode_all(stream: bytes, man: Manifest, device="cuda") -> bytes:
     one.  Without hints, kernel K6 (models/block_decoder.py) decodes all
     blocks; if it flags any, the whole stream decodes on the host.
     device=None decodes every block on the host (the reference's
-    device=False)."""
+    device=False).  Counts the blocks sent to the host in
+    decode.blocks_fallback, and a stream K6 served in
+    decode.path.pallas_scalar."""
     with metrics.span("decode"):
         return _decode_all(stream, man, device)
 
@@ -308,9 +310,12 @@ def _decode_all(stream: bytes, man: Manifest, device) -> bytes:
         from deflate_tpu_torch.models import block_decoder as BD
 
         try:
-            return BD.inflate_manifest(stream, man.blocks, device=device)
-        except BD.PallasDecodeError:
-            pass
+            out = BD.inflate_manifest(stream, man.blocks, device=device)
+        except BD.PallasDecodeError:                # whole-stream fallback
+            metrics.count("decode.blocks_fallback", len(man.blocks))
+        else:
+            metrics.count("decode.path.pallas_scalar")
+            return out
     with metrics.span("decode.fallback"):
         out = bytearray()
         for bit_off, _, _ in man.blocks:

@@ -281,6 +281,25 @@ def test_foreign_and_hintless_paths_on_card(cuda_device):
     assert M.decode_all(s, m, device=cuda_device) == data
 
 
+def test_hintless_decode_all_counts_k6_and_its_copies(cuda_device):
+    """decode_all of a hintless manifest of 257 blocks: K6 once per 256
+    blocks, each launch with its five operand copies to the card (words,
+    start_w, bit0, avail, statics) and two back (status, rows)."""
+    data = corpus(257, seed=64)
+    s, m = M.compress_with_manifest(data, level=2, hints=False,
+                                    device=cuda_device)
+    metrics.reset()
+    assert M.decode_all(s, m, device=cuda_device) == data
+    c = metrics.snapshot()["counts"]
+    assert {k: v for k, v in c.items() if k.startswith("kernel.")} == {
+        "kernel.K6": 2}
+    assert c["copy.h2d"] == 10 and c["copy.d2h"] == 4
+    assert c["copy.h2d_bytes"] >= 2 * len(s)
+    assert c["copy.d2h_bytes"] >= len(data)
+    assert c["decode.path.pallas_scalar"] == 1
+    assert "decode.blocks_fallback" not in c
+
+
 def test_k7_kernel_matches_plain(cuda_device):
     """Random 0-48-bit packets at every bit phase, one block full to
     NPK, one empty, and the packet lists of a real level-3 encode; then

@@ -23,6 +23,8 @@ ENCODE = {"encode", "encode.split", "lz77.find_matches", "lz77.chain",
 DECODE = {"decode", "decode.headers", "decode.windows", "decode.to_device",
           "decode.stages", "wave.resolve_litval", "wave.merge_match_runs",
           "decode.fill", "decode.to_host"}
+HINTLESS = {"decode", "decode.windows", "decode.to_device",
+            "decode.block_inflate", "decode.to_host"}
 
 
 @pytest.fixture(autouse=True)
@@ -58,6 +60,12 @@ def test_recording_off_records_nothing():
     names = {e.name() for e in _profile_events(prof)}
     assert not any(n.endswith("off_span") for n in names)
     assert metrics.snapshot()["spans"] == {}
+
+
+def test_to_host_of_a_host_tensor_is_no_copy():
+    t = torch.arange(4)
+    assert metrics.to_host(t) is t
+    assert metrics.snapshot()["counts"] == {}
 
 
 def test_nesting_parents_ops_and_self_time():
@@ -205,6 +213,44 @@ def test_decode_all_counts_the_blocks_it_sends_to_the_host(data):
             pass
     snap = metrics.snapshot()
     assert snap["counts"]["decode.blocks_fallback"] >= 1
+    assert "decode.fallback" in snap["spans"]
+    _one_op(snap, "decode")
+
+
+@pytest.fixture(scope="module")
+def hintless(data):
+    """data's level-2 stream and its manifest without entry phases."""
+    return M.compress_with_manifest(data, level=2, hints=False,
+                                    device="cpu")
+
+
+def test_hintless_decode_all_spans_and_path(data, hintless):
+    """K6's path (the plain version on the CPU) in decode_all: the
+    operands, their copies, the inflate and the rows back, one op, and
+    the decoder that served counted once."""
+    stream, man = hintless
+    assert man.hints is None
+    out, snap = _recorded(lambda: M.decode_all(stream, man, device="cpu"))
+    assert out == data
+    assert set(snap["spans"]) == HINTLESS
+    _one_op(snap, "decode")
+    assert snap["counts"] == {"decode.path.pallas_scalar": 1}
+
+
+def test_hintless_decode_all_counts_every_block_it_sends_to_the_host(
+        hintless):
+    """A block K6 flags sends the whole stream to the host."""
+    stream, man = hintless
+    bad = corrupt_block3(stream, man)
+    metrics.reset()
+    with metrics.recording(sync=False):
+        try:
+            M.decode_all(bad, man, device="cpu")
+        except (D.InflateError, ValueError, IndexError):
+            pass
+    snap = metrics.snapshot()
+    assert snap["counts"]["decode.blocks_fallback"] == len(man.blocks)
+    assert "decode.path.pallas_scalar" not in snap["counts"]
     assert "decode.fallback" in snap["spans"]
     _one_op(snap, "decode")
 
