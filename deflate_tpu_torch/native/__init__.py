@@ -9,7 +9,8 @@ flags so an edited source rebuilds.  A failed build raises: there is no
 pure-Python stand-in behind these functions.
 
   skeleton(data)            virtual-block plan of a raw DEFLATE stream
-                            (the foreign-stream device decode's walk)
+                            (the foreign-stream device decode's walk, in
+                            pieces on the process's cores)
   inflate(data, cap)        host decode of a raw stream
   inflate_consumed(data, cap)  the same, plus the input bytes consumed
                             (gzip members)
@@ -33,12 +34,16 @@ import threading
 
 import numpy as np
 
+from deflate_tpu_torch.utils import metrics
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRCS = [os.path.join(_HERE, f) for f in ("inflate.cpp", "deflate.cpp")]
 BUILD = os.path.join(os.path.dirname(_HERE), "_build")
-CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
+CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 HINT_STRIDE = 4224            # hint bytes per virtual block: the largest
                               # wave bucket (models/wave_decoder.BUCKETS)
+MIN_PIECE = 1 << 16           # compressed bytes: the skeleton walk splits a
+PIECES_PER_THREAD = 4         # stream into pieces no smaller, a few a thread
 
 DT_OK = 0
 DT_ERRORS = {
@@ -80,7 +85,7 @@ def build() -> str:
 
 
 ASAN_FLAGS = ["-O1", "-g", "-std=c++17", "-fsanitize=address,undefined",
-              "-fno-sanitize-recover=all"]
+              "-fno-sanitize-recover=all", "-pthread"]
 FUZZ_SRC = os.path.join(_HERE, "asan_fuzz.cpp")
 
 
@@ -105,10 +110,12 @@ def lib() -> ctypes.CDLL:
             L.dt_inflate.restype = ctypes.c_int
             L.dt_inflate.argtypes = [ctypes.c_char_p, ctypes.c_size_t, u8p,
                                      ctypes.c_size_t, szp]
-            L.dt_skeleton.restype = ctypes.c_int
-            L.dt_skeleton.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
-                                      ctypes.c_int64, ctypes.c_int64, i64p,
-                                      u8p, i64p, i64p]
+            L.dt_skeleton_par.restype = ctypes.c_int
+            L.dt_skeleton_par.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                          ctypes.c_int64, ctypes.c_int64,
+                                          i64p, u8p, i64p, i64p,
+                                          ctypes.c_int64, ctypes.c_int64,
+                                          i64p]
             i32p = ctypes.POINTER(ctypes.c_int32)
             L.dt_parse_headers.restype = ctypes.c_int
             L.dt_parse_headers.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
@@ -265,12 +272,32 @@ def parse_headers(data: bytes, bit_offsets):
 
 def skeleton(data: bytes):
     """Skeleton walk of a raw DEFLATE stream: the virtual-block index and
-    decode hints of the wavefront device decoder (dt_skeleton in
-    inflate.cpp).  Works on any conforming stream.
+    decode hints of the wavefront device decoder.  Works on any
+    conforming stream.
+
+    The walk runs on every core of the process's CPU affinity, in pieces
+    of at least MIN_PIECE compressed bytes, PIECES_PER_THREAD a thread
+    (dt_skeleton_par in inflate.cpp), and gives dt_skeleton's plan byte
+    for byte.  Counts ``skeleton.pieces``, ``skeleton.pieces_taken`` and
+    ``skeleton.blocks_rewalked`` once a plan is returned.
 
     Returns dict(parent_bit, start_bit, out_len, flags, span_bits,
     out_start, btype — int64 [n_vb]; hints uint8 [n_vb, HINT_STRIDE];
     total_out int).  Raises ValueError on malformed streams."""
+    threads = len(os.sched_getaffinity(0))
+    piece = (max(MIN_PIECE, -(-len(data) // (PIECES_PER_THREAD * threads)))
+             if threads > 1 else 0)
+    plan, stats = _skeleton(data, threads, piece)
+    for name, n in zip(("pieces", "pieces_taken", "blocks_rewalked"), stats):
+        metrics.count(f"skeleton.{name}", n)
+    return plan
+
+
+def _skeleton(data: bytes, threads: int, piece_bytes: int):
+    """skeleton()'s walk with the thread and piece counts given: pieces of
+    piece_bytes on up to `threads` threads, or dt_skeleton alone where
+    that makes fewer than two pieces (piece_bytes 0).  Returns (plan,
+    (pieces, pieces taken, blocks rewalked))."""
     L = lib()
     # every vb covers >= 1 output byte or >= one stored block; a
     # conforming stream of n bytes can't exceed ~1032x expansion (the
@@ -278,24 +305,27 @@ def skeleton(data: bytes):
     max_vb = max(64, min(2 * len(data) + 16,
                          (1040 * len(data)) // 32768 + 16))
     i64p = ctypes.POINTER(ctypes.c_int64)
+    stats = np.zeros(3, np.int64)
     while True:
         meta = np.zeros((max_vb, 8), np.int64)
         hints = np.zeros((max_vb, HINT_STRIDE), np.uint8)
         n_vb = ctypes.c_int64(0)
         total = ctypes.c_int64(0)
-        rc = L.dt_skeleton(
+        rc = L.dt_skeleton_par(
             data, len(data), max_vb, HINT_STRIDE,
             meta.ctypes.data_as(i64p),
             hints.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            ctypes.byref(n_vb), ctypes.byref(total))
+            ctypes.byref(n_vb), ctypes.byref(total), threads, piece_bytes,
+            stats.ctypes.data_as(i64p))
         if rc == -2 and max_vb < 1 << 22:
             max_vb *= 4
             continue
         if rc != DT_OK:
             raise ValueError(f"skeleton: {DT_ERRORS.get(rc, rc)}")
         m = meta[:n_vb.value]
-        return {"parent_bit": m[:, 0].copy(), "start_bit": m[:, 1].copy(),
-                "out_len": m[:, 2].copy(), "flags": m[:, 3].copy(),
-                "span_bits": m[:, 4].copy(), "out_start": m[:, 5].copy(),
-                "btype": m[:, 6].copy(), "hints": hints[:n_vb.value].copy(),
-                "total_out": total.value}
+        return ({"parent_bit": m[:, 0].copy(), "start_bit": m[:, 1].copy(),
+                 "out_len": m[:, 2].copy(), "flags": m[:, 3].copy(),
+                 "span_bits": m[:, 4].copy(), "out_start": m[:, 5].copy(),
+                 "btype": m[:, 6].copy(),
+                 "hints": hints[:n_vb.value].copy(),
+                 "total_out": total.value}, tuple(int(x) for x in stats))

@@ -5,7 +5,9 @@
 // point that this package's host paths call on untrusted bytes: besides
 // dt_inflate (and dt_deflate's round trips), dt_inflate2 (gzip members),
 // dt_parse_headers (the wavefront decoder's header walk, at offsets
-// that may lie anywhere) and dt_skeleton (the foreign-stream walk).
+// that may lie anywhere), dt_skeleton (the foreign-stream walk) and
+// dt_skeleton_par (the same walk in pieces on threads, held to
+// dt_skeleton's result).
 // Each is fed three adversarial corpora and must return a clean result
 // or a negative error code, never a sanitizer report (built with
 // -fno-sanitize-recover=all, a finding aborts the process, which the
@@ -15,7 +17,8 @@
 //   3. valid streams with single-byte corruptions
 // Built and run by deflate_tpu_torch.native.build_asan_fuzz's caller:
 //   g++ -O1 -g -std=c++17 -fsanitize=address,undefined
-//       -fno-sanitize-recover=all asan_fuzz.cpp inflate.cpp deflate.cpp
+//       -fno-sanitize-recover=all -pthread asan_fuzz.cpp inflate.cpp
+//       deflate.cpp
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -37,6 +40,10 @@ int dt_parse_headers(const uint8_t* in, size_t in_len,
 int dt_skeleton(const uint8_t* in, size_t in_len, int64_t max_vb,
                 int64_t hint_stride, int64_t* vb_meta, uint8_t* hints,
                 int64_t* n_vb_out, int64_t* total_out);
+int dt_skeleton_par(const uint8_t* in, size_t in_len, int64_t max_vb,
+                    int64_t hint_stride, int64_t* vb_meta, uint8_t* hints,
+                    int64_t* n_vb_out, int64_t* total_out, int64_t threads,
+                    int64_t piece_bytes, int64_t* stats);
 }
 
 static uint64_t rng_state = 0x9E3779B97F4A7C15ull;
@@ -106,7 +113,9 @@ static int check_headers(const uint8_t* in, size_t n) {
 }
 
 // dt_skeleton with a small and a roomy table (the small one exercises
-// its table-full return)
+// its table-full return); dt_skeleton_par in small pieces on 2-4 threads
+// with the same tables must return the same code and, on success, the
+// same plan
 static int check_skeleton(const uint8_t* in, size_t n) {
   const int64_t stride = 4224;
   for (int64_t max_vb : {(int64_t)2, (int64_t)64}) {
@@ -119,6 +128,26 @@ static int check_skeleton(const uint8_t* in, size_t n) {
     if (rc == 0 && (nvb < 0 || nvb > max_vb || total < 0)) {
       std::fprintf(stderr, "dt_skeleton: %lld vbs, %lld bytes\n",
                    (long long)nvb, (long long)total);
+      return 2;
+    }
+    int64_t threads = 2 + xr() % 3;
+    const int64_t pieces[] = {16, 64, 257, 1024};
+    int64_t piece = pieces[xr() % 4];
+    std::vector<int64_t> pmeta(max_vb * 8);
+    std::vector<uint8_t> phints(max_vb * stride);
+    int64_t pnvb = 0, ptotal = 0, stats[3];
+    int prc = dt_skeleton_par(in, n, max_vb, stride, pmeta.data(),
+                              phints.data(), &pnvb, &ptotal, threads, piece,
+                              stats);
+    if (prc != rc || (rc == 0 && (pnvb != nvb || ptotal != total ||
+                                  std::memcmp(pmeta.data(), meta.data(),
+                                              8 * 8 * nvb) ||
+                                  std::memcmp(phints.data(), hints.data(),
+                                              stride * nvb)))) {
+      std::fprintf(stderr, "dt_skeleton_par (%lld threads, %lld-byte "
+                   "pieces) rc %d, %lld vbs; dt_skeleton rc %d, %lld vbs\n",
+                   (long long)threads, (long long)piece, prc,
+                   (long long)pnvb, rc, (long long)nvb);
       return 2;
     }
   }

@@ -1,7 +1,8 @@
 // Host-side native INFLATE — the CPU fast path of the deflate_tpu_torch
-// runtime, copied unchanged (but for this comment) from
-// deflate_tpu/native/inflate.cpp, so that the port builds it on its own
-// (deflate_tpu_torch/native/__init__.py, g++ at first use).
+// runtime, copied from deflate_tpu/native/inflate.cpp, so that the port
+// builds it on its own (deflate_tpu_torch/native/__init__.py, g++ at
+// first use).  The port's copy adds dt_skeleton_par, the skeleton walk in
+// pieces on threads, and walks a block at a time in dt_skeleton for it.
 //
 // Reference analog: class inflate (inflate.hpp:26-409 of the reference
 // library), whose hot loop probes a pointer-chasing trie once per input BIT
@@ -17,10 +18,16 @@
 //     returns 0 ok, negative error codes otherwise (see DT_E_*)
 //   uint32_t dt_adler32(const uint8_t* p, size_t n);
 //   void dt_stitch(...)  -- bit-level segment concatenation
+//   int dt_skeleton(...), dt_skeleton_par(...)  -- the skeleton walk
 
+#include <algorithm>
+#include <atomic>
+#include <cstddef>
 #include <cstdint>
 #include <cstring>
-#include <cstddef>
+#include <memory>
+#include <thread>
+#include <vector>
 
 extern "C" {
 
@@ -554,15 +561,541 @@ void dt_stitch(const uint32_t* seg_words, const uint64_t* seg_offsets,
   }
 }
 
-// Skeleton walk for the wavefront decoder (ops/wave.py): decode symbol
-// LENGTHS only (no output materialization) for an entire raw DEFLATE
+}  // extern "C"
+
+namespace {
+
+// ====================== skeleton walk ======================================
+// Decodes symbol LENGTHS only (no output materialization) of a raw DEFLATE
 // stream, cutting it into VIRTUAL BLOCKS of <= 32768 output bytes at
 // symbol boundaries and recording per virtual block the per-64-bit-chunk
 // symbol entry phases ("decode hints").  This is what lets FOREIGN
 // conforming streams (zlib/gzip/libdeflate output — reference analog
-// inflate.hpp:277-322) ride the fully-vectorized device decode path:
-// virtual blocks all decode in parallel on the VPU; only this walk and
-// the match fill are sequential.
+// inflate.hpp:277-322) ride the vectorized device decode path: virtual
+// blocks all decode in parallel on the card; only this walk and the match
+// fill are sequential.
+//
+// Every parent block starts a fresh virtual block, and a virtual block's
+// row depends only on its parent block's bits: out_start is a prefix sum
+// and the stream-wide distance check needs only each row's reach.  So a
+// walk from any true block header gives, from there on, the rows the walk
+// from bit 0 gives.  dt_skeleton walks from bit 0; dt_skeleton_par walks
+// pieces of the stream on threads from headers it searches for, then
+// stitches them in stream order (Rapidgzip's block finder and speculative
+// decode, without a window to carry).
+
+// Where a walk puts its virtual blocks.  TableSink writes the caller's
+// table and checks each distance against the absolute output at once.
+struct TableSink {
+  static constexpr bool kAbsolute = true;
+  int64_t* meta;
+  uint8_t* hints;
+  int64_t stride, max_vb;
+  int64_t nvb = 0, out_abs = 0;
+
+  // the next row's hints, all 0xFF; nullptr when the table is full
+  uint8_t* open() {
+    if (nvb >= max_vb) return nullptr;
+    uint8_t* h = hints + nvb * stride;
+    memset(h, 0xFF, size_t(stride));
+    return h;
+  }
+  bool push(int64_t parent, int64_t start, int64_t out_len, int64_t flags,
+            int64_t span, int64_t btype, int64_t /*reach*/) {
+    if (nvb >= max_vb) return false;
+    int64_t* m = meta + nvb * 8;
+    m[0] = parent;
+    m[1] = start;
+    m[2] = out_len;
+    m[3] = flags;
+    m[4] = span;
+    m[5] = out_abs;
+    m[6] = btype;
+    m[7] = 0;
+    out_abs += out_len;
+    nvb++;
+    return true;
+  }
+};
+
+// Hint bytes a row can have written: symbols start before its span's end,
+// and a cut row's stop mark sits at the span itself.
+inline int64_t hints_used(int64_t span, int64_t stride) {
+  int64_t u = (span >> 6) + 1;
+  return u < stride ? u : stride;
+}
+
+struct PieceVb {
+  int64_t m[8];   // the row, m[5] the piece-local output offset
+  int64_t reach;  // largest dist - (row output before the match), or 0
+  int64_t hoff;   // the row's hints in PieceSink::hb
+};
+
+// A piece's rows with piece-local output offsets, each row's hints only as
+// far as its span reaches, and each row's reach, which the stitch checks
+// against the row's absolute offset.
+struct PieceSink {
+  static constexpr bool kAbsolute = false;
+  int64_t stride = 0;
+  std::vector<PieceVb> vbs;
+  std::vector<uint8_t> hb;
+  int64_t hend = 0, out_abs = 0;
+
+  uint8_t* open() {
+    if (int64_t(hb.size()) < hend + stride) hb.resize(size_t(2 * (hend + stride)));
+    uint8_t* h = hb.data() + hend;
+    memset(h, 0xFF, size_t(stride));
+    return h;
+  }
+  bool push(int64_t parent, int64_t start, int64_t out_len, int64_t flags,
+            int64_t span, int64_t btype, int64_t reach) {
+    vbs.push_back({{parent, start, out_len, flags, span, out_abs, btype, 0},
+                   reach, hend});
+    hend += hints_used(span, stride);
+    out_abs += out_len;
+    return true;
+  }
+  struct Mark {
+    size_t nvb;
+    int64_t hend, out_abs;
+  };
+  Mark mark() const { return {vbs.size(), hend, out_abs}; }
+  void rollback(const Mark& k) {
+    vbs.resize(k.nvb);
+    hend = k.hend;
+    out_abs = k.out_abs;
+  }
+};
+
+constexpr int DT_FAR = -100;  // internal: a piece's walk passed its limit
+
+inline int64_t bitpos_of(const BitReader& br, const uint8_t* in) {
+  return 8 * int64_t(br.p - in) - br.n;
+}
+
+// A reader positioned at bit `at` (< 8 * in_len) of the stream.
+inline BitReader reader_at(const uint8_t* in, size_t in_len, int64_t at) {
+  BitReader br{in + (at >> 3), in + in_len};
+  br.refill();
+  br.drop(int(at & 7));
+  return br;
+}
+
+// Walks the parent block whose BFINAL bit is the reader's next bit into
+// sk.  Returns DT_OK, a stream error, DT_E_OUTPUT (sk full or the hint
+// window exceeded) or DT_FAR (a symbol starts past bit `far`).
+template <class Sink>
+int walk_block(BitReader& br, const uint8_t* in, size_t in_len, Tables& tbl,
+               Sink& sk, int64_t hint_stride, int64_t far, bool* bfinal_out) {
+  const int64_t span_cap = 64 * hint_stride - 64;
+  auto bitpos = [&]() { return bitpos_of(br, in); };
+
+  if (!br.have(3)) return DT_E_INPUT;
+  int64_t parent = bitpos();
+  *bfinal_out = br.peek(1) != 0;
+  br.drop(1);
+  int btype = int(br.peek(2));
+  br.drop(2);
+
+  if (btype == 3) return DT_E_BTYPE;
+  if (btype == 0) {
+    br.align();
+    if (!br.have(32)) return DT_E_INPUT;
+    uint32_t len = br.peek(16);
+    br.drop(16);
+    uint32_t nlen = br.peek(16);
+    br.drop(16);
+    if ((len ^ nlen) != 0xFFFF) return DT_E_INPUT;
+    int64_t payload = bitpos();
+    if (size_t(payload + 8 * int64_t(len)) > 8 * in_len) return DT_E_INPUT;
+    uint32_t c = 0;
+    do {  // len == 0 emits one empty vb so the stream stays indexed
+      uint32_t take = len - c > 32768 ? 32768 : len - c;
+      if (!sk.open() || !sk.push(parent, payload + 8 * int64_t(c), take,
+                                 1 | 2, 8 * int64_t(take), 0, 0))
+        return DT_E_OUTPUT;
+      c += take;
+    } while (c < len);
+    // advance the reader past the payload (buffer holds whole bytes)
+    uint32_t rem = len;
+    while (rem && br.n >= 8) {
+      br.drop(8);
+      rem--;
+    }
+    br.p += rem;
+    return DT_OK;
+  }
+  if (btype == 1) {
+    if (fixed_tables(tbl) < 0) return DT_E_CODE;
+  } else {
+    int rc = dynamic_tables(br, tbl);
+    if (rc != DT_OK) return rc;
+  }
+  int64_t vb_start = bitpos();
+  int64_t vb_out = 0;
+  int64_t vb_flags = 0;
+  int64_t vb_reach = 0;
+  uint8_t* h = sk.open();
+  if (!h) return DT_E_OUTPUT;
+  for (;;) {
+    if (br.n == 0 && br.p == br.end) return DT_E_INPUT;
+    int64_t sym_bit = bitpos();
+    if (sym_bit > far) return DT_FAR;
+    int s = decode_sym(br, tbl.lit);
+    if (s < 0) return DT_E_CODE;
+    int64_t emit, length = 0, dist = 0;
+    if (s < 256) {
+      emit = 1;
+    } else if (s == 256) {
+      emit = 0;
+    } else {
+      if (s > 285) return DT_E_CODE;
+      int li = s - 257;
+      if (!br.have(kLenExtra[li])) return DT_E_INPUT;
+      length = kLenBase[li] + br.peek(kLenExtra[li]);
+      br.drop(kLenExtra[li]);
+      int d = decode_sym(br, tbl.dist);
+      if (d < 0 || d > 29) return DT_E_CODE;
+      if (!br.have(kDistExtra[d])) return DT_E_INPUT;
+      dist = kDistBase[d] + br.peek(kDistExtra[d]);
+      br.drop(kDistExtra[d]);
+      emit = length;
+    }
+    if (s != 256 &&
+        (vb_out + emit > 32768 || sym_bit - vb_start >= span_cap)) {
+      // cut BEFORE this symbol: close the vb with a synthetic stop.
+      // The stop position itself gets a hint entry — the wavefront
+      // chain validation checks every chunk's carry-in against the
+      // hints, and the stop mark is part of the old vb's chain.
+      int64_t srel = sym_bit - vb_start;
+      if (h[srel >> 6] == 0xFF) h[srel >> 6] = uint8_t(srel & 63);
+      if (!sk.push(parent, vb_start, vb_out, vb_flags, srel, btype,
+                   vb_reach))
+        return DT_E_OUTPUT;
+      h = sk.open();
+      if (!h) return DT_E_OUTPUT;
+      vb_start = sym_bit;
+      vb_out = 0;
+      vb_flags = 0;
+      vb_reach = 0;
+    }
+    int64_t rel = sym_bit - vb_start;
+    int64_t w = rel >> 6;
+    if (w >= hint_stride) return DT_E_OUTPUT;
+    if (h[w] == 0xFF) h[w] = uint8_t(rel & 63);
+    if (s == 256)
+      return sk.push(parent, vb_start, vb_out, vb_flags | 2,
+                     bitpos() - vb_start, btype, vb_reach)
+                 ? DT_OK
+                 : DT_E_OUTPUT;
+    if (s > 256) {
+      if constexpr (Sink::kAbsolute) {
+        if (dist > sk.out_abs + vb_out) return DT_E_DIST;
+      } else if (dist - vb_out > vb_reach) {
+        vb_reach = dist - vb_out;
+      }
+      if (dist > vb_out) vb_flags |= 4;  // reaches previous vb output
+    }
+    vb_out += emit;
+  }
+}
+
+// ---- header search -------------------------------------------------------
+
+static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__,
+              "bits_at loads little-endian words");
+
+// The stream's bits from bit b on, at least 57 of them (zeros past the end).
+inline uint64_t bits_at(const uint8_t* in, size_t in_len, int64_t b) {
+  size_t k = size_t(b >> 3);
+  uint64_t w = 0;
+  if (k + 8 <= in_len) {
+    memcpy(&w, in + k, 8);
+  } else {
+    for (size_t j = 0; k + j < in_len; j++) w |= uint64_t(in[k + j]) << (8 * j);
+  }
+  return w >> (b & 7);
+}
+
+// Whether a dynamic-Huffman header with BFINAL 0 starts at bit b and reads
+// as one the walk would accept: HLIT <= 286, HDIST <= 30, code lengths
+// that decode to exactly HLIT + HDIST entries, a length for symbol 256,
+// tables that build.  Stricter than the walk: the precode and the
+// literal/length code must be complete, as encoders write them, which
+// rejects nearly every false position.  A true header this misses costs
+// only time: the stitch walks its block in order.
+bool dynamic_candidate(const uint8_t* in, size_t in_len, int64_t b) {
+  const int64_t nbits = 8 * int64_t(in_len);
+  uint64_t w = bits_at(in, in_len, b);
+  if ((w & 7) != 4) return false;  // BFINAL 0, BTYPE 2
+  int hlit = int((w >> 3) & 31) + 257;
+  int hdist = int((w >> 8) & 31) + 1;
+  int hclen = int((w >> 13) & 15) + 4;
+  if (hlit > 286 || hdist > 30) return false;
+  int64_t pos = b + 17 + 3 * hclen;
+  if (pos > nbits) return false;
+  uint64_t v = bits_at(in, in_len, b + 17);  // 3 x 19 = 57 bits
+  uint8_t cl[19] = {0};
+  int kraft = 0;
+  for (int i = 0; i < hclen; i++) {
+    int l = int((v >> (3 * i)) & 7);
+    cl[kClOrder[i]] = uint8_t(l);
+    if (l && (kraft += 128 >> l) > 128) return false;
+  }
+  if (kraft != 128) return false;
+  // complete 7-bit precode: every index decodes
+  int count[8] = {0}, next[8] = {0};
+  for (int s = 0; s < 19; s++) count[cl[s]]++;
+  count[0] = 0;
+  for (int l = 1, code = 0; l <= 7; l++) {
+    code = (code + count[l - 1]) << 1;
+    next[l] = code;
+  }
+  uint8_t tsym[128], tlen[128];
+  for (int s = 0; s < 19; s++) {
+    int l = cl[s];
+    if (!l) continue;
+    int code = next[l]++, rev = 0;
+    for (int k = 0; k < l; k++) rev |= ((code >> k) & 1) << (l - 1 - k);
+    for (int i = rev; i < 128; i += 1 << l) {
+      tsym[i] = uint8_t(s);
+      tlen[i] = uint8_t(l);
+    }
+  }
+  uint8_t lens[320];
+  const int n = hlit + hdist;
+  for (int i = 0; i < n;) {
+    uint64_t x = bits_at(in, in_len, pos);
+    int s = tsym[x & 127], l = tlen[x & 127];
+    if (s < 16) {
+      lens[i++] = uint8_t(s);
+    } else {
+      int rep;
+      uint8_t fill = 0;
+      if (s == 16) {
+        if (i == 0) return false;
+        rep = 3 + int((x >> l) & 3);
+        l += 2;
+        fill = lens[i - 1];
+      } else if (s == 17) {
+        rep = 3 + int((x >> l) & 7);
+        l += 3;
+      } else {
+        rep = 11 + int((x >> l) & 127);
+        l += 7;
+      }
+      if (i + rep > n) return false;
+      memset(lens + i, fill, size_t(rep));
+      i += rep;
+    }
+    pos += l;
+    if (pos > nbits) return false;
+  }
+  if (lens[256] == 0) return false;
+  long lk = 0, dk = 0;
+  for (int i = 0; i < hlit; i++)
+    if (lens[i]) lk += 1L << (kMaxCodeLen - lens[i]);
+  for (int i = hlit; i < n; i++)
+    if (lens[i]) dk += 1L << (kMaxCodeLen - lens[i]);
+  return lk == (1L << kMaxCodeLen) && dk <= (1L << kMaxCodeLen);
+}
+
+// Whether a stored header with BFINAL 0 starts at the byte-aligned bit b:
+// LEN and NLEN complements, the payload inside the stream.
+bool stored_candidate(const uint8_t* in, size_t in_len, int64_t b) {
+  size_t k = size_t(b >> 3);
+  if ((b & 7) || k + 5 > in_len || (in[k] & 7)) return false;
+  uint32_t len = in[k + 1] | uint32_t(in[k + 2]) << 8;
+  uint32_t nlen = in[k + 3] | uint32_t(in[k + 4]) << 8;
+  return (len ^ nlen) == 0xFFFF && k + 5 + len <= in_len;
+}
+
+// The first bit in [from, to) where a block header may start, or -1.
+int64_t find_header(const uint8_t* in, size_t in_len, int64_t from,
+                    int64_t to) {
+  const int64_t nbits = 8 * int64_t(in_len);
+  if (to > nbits) to = nbits;
+  for (int64_t k = from >> 3; 8 * k < to; k++) {
+    if (8 * k >= from && stored_candidate(in, in_len, 8 * k)) return 8 * k;
+    // bit j of m: BFINAL 0 and BTYPE 2 at bit 8k + j
+    uint64_t w = bits_at(in, in_len, 8 * k);
+    uint64_t m = ~w & ~(w >> 1) & (w >> 2) & 0xFF;
+    for (; m; m &= m - 1) {
+      int64_t b = 8 * k + __builtin_ctzll(m);
+      if (b >= from && b < to && dynamic_candidate(in, in_len, b)) return b;
+    }
+  }
+  return -1;
+}
+
+// ---- pieces and stitch ---------------------------------------------------
+
+struct Piece {
+  int64_t lo = 0, hi = 0;   // search [lo, hi); stop at a header >= hi
+  int64_t far = 0;          // give up on a symbol past this bit
+  int64_t end = -1;         // the header after the last whole block
+  bool final = false;       // the last whole block was the final one
+  std::vector<int64_t> starts;    // header bit of each whole block
+  std::vector<size_t> first_vb;   // its first row in sk
+  PieceSink sk;
+};
+
+// Walks whole blocks from the header at bit `at` into p until a header at
+// or past p.hi, the final block, an error or p.far; keeps the whole blocks.
+// Returns DT_OK at a clean stop, else what ended the walk.
+int walk_piece(const uint8_t* in, size_t in_len, int64_t at, Piece& p,
+               Tables& tbl) {
+  p.starts.clear();
+  p.first_vb.clear();
+  p.sk.rollback({0, 0, 0});
+  p.final = false;
+  BitReader br = reader_at(in, in_len, at);
+  for (;;) {
+    int64_t h = bitpos_of(br, in);
+    p.end = h;
+    if (h >= p.hi) return DT_OK;
+    if (h > p.far) return DT_FAR;
+    PieceSink::Mark k = p.sk.mark();
+    bool bfinal = false;
+    int rc = walk_block(br, in, in_len, tbl, p.sk, p.sk.stride, p.far,
+                        &bfinal);
+    if (rc != DT_OK) {
+      p.sk.rollback(k);
+      return rc;
+    }
+    p.starts.push_back(h);
+    p.first_vb.push_back(k.nvb);
+    if (bfinal) {
+      p.final = true;
+      p.end = bitpos_of(br, in);
+      return DT_OK;
+    }
+  }
+}
+
+constexpr int kTries = 8;  // candidates a piece walks from before giving up
+
+// Piece 0 walks from bit 0.  Any other piece walks from the first
+// candidate header in its range, and from the next one after a walk that
+// fails, up to kTries times: a false candidate mostly fails within a block.
+void run_piece(const uint8_t* in, size_t in_len, Piece& p, bool search,
+               Tables& tbl) {
+  if (!search) {
+    walk_piece(in, in_len, p.lo, p, tbl);
+    return;
+  }
+  int64_t from = p.lo;
+  for (int t = 0; t < kTries; t++) {
+    int64_t c = find_header(in, in_len, from, p.hi);
+    if (c < 0) return;
+    int rc = walk_piece(in, in_len, c, p, tbl);
+    if (rc == DT_OK || rc == DT_FAR) return;
+    from = c + 1;
+  }
+}
+
+// Appends sk's rows from v0 on to the caller's table at their absolute
+// output offsets; false if the table is full or a row reaches back past
+// the stream's start (the sequential walk's DT_E_DIST).
+bool append_rows(TableSink& o, const PieceSink& sk, size_t v0) {
+  for (size_t v = v0; v < sk.vbs.size(); v++) {
+    const PieceVb& x = sk.vbs[v];
+    if (o.nvb >= o.max_vb || x.reach > o.out_abs) return false;
+    int64_t* m = o.meta + o.nvb * 8;
+    memcpy(m, x.m, sizeof(x.m));
+    m[5] = o.out_abs;
+    uint8_t* h = o.hints + o.nvb * o.stride;
+    int64_t used = hints_used(x.m[4], o.stride);
+    memcpy(h, sk.hb.data() + x.hoff, size_t(used));
+    memset(h + used, 0xFF, size_t(o.stride - used));
+    o.out_abs += x.m[2];
+    o.nvb++;
+  }
+  return true;
+}
+
+// Walks the pieces on up to `threads` threads, then stitches them in
+// stream order into the caller's table.  A piece is taken only from a
+// block start that the verified walk (piece 0, then what was stitched)
+// reached; between such starts the stitch walks blocks in order itself.
+// Returns DT_OK with the plan written, else nonzero: the caller then
+// runs the sequential walk, whose result stands.
+int skeleton_pieces(const uint8_t* in, size_t in_len, int64_t np,
+                    int64_t piece_bytes, int64_t threads, TableSink& o,
+                    int64_t* stats) {
+  std::vector<Piece> pieces(static_cast<size_t>(np));
+  const int64_t slack = 8 * std::max<int64_t>(piece_bytes, 1 << 17);
+  for (int64_t i = 0; i < np; i++) {
+    Piece& p = pieces[size_t(i)];
+    p.lo = 8 * i * piece_bytes;
+    p.hi = i + 1 < np ? 8 * (i + 1) * piece_bytes : INT64_MAX;
+    p.far = i + 1 < np ? p.hi + slack : INT64_MAX;
+    p.sk.stride = o.stride;
+  }
+  std::atomic<int64_t> next{0};
+  std::atomic<bool> failed{false};
+  auto work = [&]() {
+    try {
+      std::unique_ptr<Tables> tbl(new Tables);
+      for (int64_t i; (i = next.fetch_add(1)) < np;)
+        run_piece(in, in_len, pieces[size_t(i)], i > 0, *tbl);
+    } catch (...) {
+      failed = true;
+    }
+  };
+  std::vector<std::thread> pool;
+  int64_t nt = std::min<int64_t>(std::min<int64_t>(threads, np), 256);
+  for (int64_t t = 1; t < nt; t++) {
+    try {
+      pool.emplace_back(work);
+    } catch (...) {
+      break;  // fewer threads: the rest of the pieces go to those there
+    }
+  }
+  work();
+  for (std::thread& t : pool) t.join();
+  if (failed) return DT_E_INPUT;
+
+  std::unique_ptr<Tables> tbl(new Tables);
+  PieceSink rw;
+  rw.stride = o.stride;
+  int64_t pos = 0, taken = 0, rewalked = 0;
+  bool final = false;
+  for (int64_t i = 0; i < np && !final; i++) {
+    const Piece& p = pieces[size_t(i)];
+    while (!final && pos < p.hi) {
+      auto it = std::lower_bound(p.starts.begin(), p.starts.end(), pos);
+      if (it != p.starts.end() && *it == pos) {
+        size_t k = size_t(it - p.starts.begin());
+        taken += i > 0 && k == 0;
+        if (!append_rows(o, p.sk, p.first_vb[k])) return DT_E_OUTPUT;
+        pos = p.end;
+        final = p.final;
+        continue;
+      }
+      rw.rollback({0, 0, 0});
+      BitReader br = reader_at(in, in_len, pos);
+      bool bfinal = false;
+      int rc = walk_block(br, in, in_len, *tbl, rw, o.stride, INT64_MAX,
+                          &bfinal);
+      if (rc != DT_OK || !append_rows(o, rw, 0)) return rc ? rc : DT_E_OUTPUT;
+      rewalked++;
+      pos = bitpos_of(br, in);
+      final = bfinal;
+    }
+  }
+  stats[0] = np - 1;
+  stats[1] = taken;
+  stats[2] = rewalked;
+  return final ? DT_OK : DT_E_INPUT;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Skeleton walk for the wavefront decoder (ops/wave.py), from bit 0 on one
+// thread.
 //
 // vb_meta layout per virtual block (8 int64s):
 //   [0] parent header bit offset (the block's BFINAL bit)
@@ -585,140 +1118,51 @@ int dt_skeleton(const uint8_t* in, size_t in_len, int64_t max_vb,
                 int64_t* n_vb_out, int64_t* total_out) {
   BitReader br{in, in + in_len};
   static thread_local Tables tbl;
-  int64_t nvb = 0;
-  int64_t out_abs = 0;  // absolute output bytes before the current vb
-  const int64_t span_cap = 64 * hint_stride - 64;
-
-  auto bitpos = [&]() { return 8 * int64_t(br.p - in) - br.n; };
-  auto push_vb = [&](int64_t parent, int64_t start, int64_t out_len,
-                     int64_t flags, int64_t span, int64_t btype) -> bool {
-    if (nvb >= max_vb) return false;
-    int64_t* m = vb_meta + nvb * 8;
-    m[0] = parent;
-    m[1] = start;
-    m[2] = out_len;
-    m[3] = flags;
-    m[4] = span;
-    m[5] = out_abs;
-    m[6] = btype;
-    m[7] = 0;
-    out_abs += out_len;
-    nvb++;
-    return true;
-  };
-
+  TableSink sk{vb_meta, hints, hint_stride, max_vb};
   for (;;) {
-    if (!br.have(3)) return DT_E_INPUT;
-    int64_t parent = bitpos();
-    int bfinal = int(br.peek(1));
-    br.drop(1);
-    int btype = int(br.peek(2));
-    br.drop(2);
-
-    if (btype == 3) return DT_E_BTYPE;
-    if (btype == 0) {
-      br.align();
-      if (!br.have(32)) return DT_E_INPUT;
-      uint32_t len = br.peek(16);
-      br.drop(16);
-      uint32_t nlen = br.peek(16);
-      br.drop(16);
-      if ((len ^ nlen) != 0xFFFF) return DT_E_INPUT;
-      int64_t payload = bitpos();
-      if (size_t(payload + 8 * int64_t(len)) > 8 * in_len)
-        return DT_E_INPUT;
-      uint32_t c = 0;
-      do {  // len == 0 emits one empty vb so the stream stays indexed
-        uint32_t take = len - c > 32768 ? 32768 : len - c;
-        if (!push_vb(parent, payload + 8 * int64_t(c), take, 1 | 2,
-                     8 * int64_t(take), 0))
-          return DT_E_OUTPUT;
-        memset(hints + (nvb - 1) * hint_stride, 0xFF, size_t(hint_stride));
-        c += take;
-      } while (c < len);
-      // advance the reader past the payload (buffer holds whole bytes)
-      uint32_t rem = len;
-      while (rem && br.n >= 8) {
-        br.drop(8);
-        rem--;
-      }
-      br.p += rem;
-    } else {
-      if (btype == 1) {
-        if (fixed_tables(tbl) < 0) return DT_E_CODE;
-      } else {
-        int rc = dynamic_tables(br, tbl);
-        if (rc != DT_OK) return rc;
-      }
-      int64_t vb_start = bitpos();
-      int64_t vb_out = 0;
-      int64_t vb_flags = 0;
-      if (nvb >= max_vb) return DT_E_OUTPUT;
-      uint8_t* h = hints + nvb * hint_stride;
-      memset(h, 0xFF, size_t(hint_stride));
-      for (;;) {
-        if (br.n == 0 && br.p == br.end) return DT_E_INPUT;
-        int64_t sym_bit = bitpos();
-        int s = decode_sym(br, tbl.lit);
-        if (s < 0) return DT_E_CODE;
-        int64_t emit, length = 0, dist = 0;
-        if (s < 256) {
-          emit = 1;
-        } else if (s == 256) {
-          emit = 0;
-        } else {
-          if (s > 285) return DT_E_CODE;
-          int li = s - 257;
-          if (!br.have(kLenExtra[li])) return DT_E_INPUT;
-          length = kLenBase[li] + br.peek(kLenExtra[li]);
-          br.drop(kLenExtra[li]);
-          int d = decode_sym(br, tbl.dist);
-          if (d < 0 || d > 29) return DT_E_CODE;
-          if (!br.have(kDistExtra[d])) return DT_E_INPUT;
-          dist = kDistBase[d] + br.peek(kDistExtra[d]);
-          br.drop(kDistExtra[d]);
-          emit = length;
-        }
-        if (s != 256 && (vb_out + emit > 32768 ||
-                         sym_bit - vb_start >= span_cap)) {
-          // cut BEFORE this symbol: close the vb with a synthetic stop.
-          // The stop position itself gets a hint entry — the wavefront
-          // chain validation checks every chunk's carry-in against the
-          // hints, and the stop mark is part of the old vb's chain.
-          int64_t srel = sym_bit - vb_start;
-          if (h[srel >> 6] == 0xFF) h[srel >> 6] = uint8_t(srel & 63);
-          if (!push_vb(parent, vb_start, vb_out, vb_flags, srel, btype))
-            return DT_E_OUTPUT;
-          if (nvb >= max_vb) return DT_E_OUTPUT;
-          vb_start = sym_bit;
-          vb_out = 0;
-          vb_flags = 0;
-          h = hints + nvb * hint_stride;
-          memset(h, 0xFF, size_t(hint_stride));
-        }
-        int64_t rel = sym_bit - vb_start;
-        int64_t w = rel >> 6;
-        if (w >= hint_stride) return DT_E_OUTPUT;
-        if (h[w] == 0xFF) h[w] = uint8_t(rel & 63);
-        if (s == 256) {
-          if (!push_vb(parent, vb_start, vb_out, vb_flags | 2,
-                       bitpos() - vb_start, btype))
-            return DT_E_OUTPUT;
-          break;
-        }
-        if (s > 256) {
-          if (dist > out_abs + vb_out) return DT_E_DIST;
-          if (dist > vb_out) vb_flags |= 4;  // reaches previous vb output
-        }
-        vb_out += emit;
-      }
-    }
+    bool bfinal = false;
+    int rc = walk_block(br, in, in_len, tbl, sk, hint_stride, INT64_MAX,
+                        &bfinal);
+    if (rc != DT_OK) return rc;
     if (bfinal) {
-      *n_vb_out = nvb;
-      *total_out = out_abs;
+      *n_vb_out = sk.nvb;
+      *total_out = sk.out_abs;
       return DT_OK;
     }
   }
+}
+
+// dt_skeleton's plan, byte for byte, walked in pieces of piece_bytes
+// compressed bytes on up to `threads` threads.  With fewer than two
+// pieces, or when the pieces' stitch meets an error, a full table or a
+// failed allocation, it returns dt_skeleton's own result (so malformed
+// streams fail with its code).  stats[0..2]: pieces walked from a
+// searched header, those taken from that header, blocks the stitch
+// walked again in order (all 0 when dt_skeleton alone ran).
+int dt_skeleton_par(const uint8_t* in, size_t in_len, int64_t max_vb,
+                    int64_t hint_stride, int64_t* vb_meta, uint8_t* hints,
+                    int64_t* n_vb_out, int64_t* total_out, int64_t threads,
+                    int64_t piece_bytes, int64_t* stats) {
+  stats[0] = stats[1] = stats[2] = 0;
+  int64_t np = piece_bytes > 0
+                   ? (int64_t(in_len) + piece_bytes - 1) / piece_bytes
+                   : 1;
+  if (np >= 2 && threads >= 1) {
+    int rc;
+    try {
+      TableSink o{vb_meta, hints, hint_stride, max_vb};
+      rc = skeleton_pieces(in, in_len, np, piece_bytes, threads, o, stats);
+      if (rc == DT_OK) {
+        *n_vb_out = o.nvb;
+        *total_out = o.out_abs;
+        return DT_OK;
+      }
+    } catch (...) {
+    }
+    stats[0] = stats[1] = stats[2] = 0;
+  }
+  return dt_skeleton(in, in_len, max_vb, hint_stride, vb_meta, hints,
+                     n_vb_out, total_out);
 }
 
 // Export this translation unit's RFC 1951 constants so the test suite can

@@ -5,6 +5,7 @@ absent:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -p no:randomly -o addopts=""
 """
+import os
 import zlib
 
 import numpy as np
@@ -279,6 +280,22 @@ def test_foreign_and_hintless_paths_on_card(cuda_device):
     s, m = M.compress_with_manifest(data, level=2, hints=False,
                                     device=cuda_device)
     assert M.decode_all(s, m, device=cuda_device) == data
+
+
+def test_forced_decode_of_a_chunk_walks_in_pieces(cuda_device):
+    """decompress(force_device=True) of the benchmark's 8 MiB zlib-6
+    chunk: the chunk back on the wave path, the skeleton walked in
+    pieces wherever the process has two cores or more."""
+    from codecbench.data.mixed_corpus import make_corpus
+
+    chunk = make_corpus(np.random.default_rng((0, 0)), 8 << 20)
+    raw = zlib.compress(chunk, 6)[2:-4]
+    metrics.reset()
+    assert D.decompress(raw, device=cuda_device, force_device=True) == chunk
+    c = metrics.snapshot()["counts"]
+    assert c["decode.path.wave"] == 1
+    if len(os.sched_getaffinity(0)) > 1:
+        assert c["skeleton.pieces"] >= 2
 
 
 def test_hintless_decode_all_counts_k6_and_its_copies(cuda_device):

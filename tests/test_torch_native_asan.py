@@ -2,7 +2,9 @@
 (deflate_tpu_torch/native/asan_fuzz.cpp) feeds random garbage,
 truncations and one-byte corruptions of valid streams to dt_inflate,
 dt_inflate2, dt_parse_headers (at offsets anywhere, extreme ones
-included) and dt_skeleton; any sanitizer finding aborts it."""
+included), dt_skeleton and dt_skeleton_par (in pieces of 16 to 1024
+bytes on 2-4 threads, held to dt_skeleton's code and plan); any
+sanitizer finding or a differing plan fails it."""
 import subprocess
 
 from deflate_tpu_torch import native
