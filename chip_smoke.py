@@ -672,7 +672,7 @@ def main() -> int:
             require(f.read() == prefix, "decompress_file of the prefix")
     ranges = [(0, 100), (32760, 32800), (len(data) - 5000, len(data) + 10)]
     for a, b in ranges:
-        require(M.decode_range(stream, man, a, b) == data[a:b],
+        require(M.decode_range(stream, man, a, b, device=dev) == data[a:b],
                 f"decode_range({a}, {b})")
     small = data[3 << 20:(3 << 20) + 10000]
     for backend in ("native", "auto"):

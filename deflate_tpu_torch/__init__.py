@@ -33,14 +33,14 @@ Bare raw and zlib streams, from any encoder:
 Without force_device, ``decompress`` and ``decompress_zlib`` decode a
 bare stream on the HOST even when a device is named (the reference's
 policy; the card is still required to be present): force_device=True is
-the only way onto the card for them.  ``decompress_gzip``,
-``decompress_file`` and ``decode_range`` are host decoders, as in the
-reference.
+the only way onto the card for them.  ``decompress_gzip`` and
+``decompress_file`` are host decoders, as in the reference;
+``decode_range`` decodes only the range's blocks, on the card by default.
 ``device`` is a torch device and defaults to the card ("cuda"); without
 one the entry points raise rather than run on the CPU.  device="cpu" runs
 the same torch path with every kernel's plain PyTorch version (the tests
-do); device=None in ``decompress``, ``decompress_zlib`` and
-``decode_all`` is the host decoder (the reference's device=False).  On a
+do); device=None in ``decompress``, ``decompress_zlib``, ``decode_all``
+and ``decode_range`` is the host decoder (the reference's device=False).  On a
 CUDA device every kernel of a path (ops/tree.py, ops/wave_stagea.py,
 ops/wave_route.py, ops/wave_fill.py, ops/block_inflate.py) launches its
 CUDA C++ kernel from ``csrc/``, built by ``_build.py`` at first use.  A

@@ -12,17 +12,21 @@ block independently.
 
   compress_with_manifest(data, level=2, device=dev) -> (stream, Manifest)
   decode_all(stream, man, device=dev) -> bytes
-  decode_range(stream, man, start, end) -> bytes   (host)
+  decode_range(stream, man, start, end, device=dev) -> bytes
 
 ``device`` is a torch device and defaults to the card ("cuda"); without
 one these raise.  device="cpu" runs the same torch path with the plain
-kernel versions (the tests do).  decode_all(device=None) is the host
-decoder, the reference's device=False.
+kernel versions (the tests do).  device=None in decode_all and
+decode_range is the host decoder, the reference's device=False.
+decode_range decodes only the range's blocks, through the block decode
+decode_all uses.
 """
 from __future__ import annotations
 
 import base64
+import bisect
 import dataclasses
+import itertools
 import json
 
 import numpy as np
@@ -164,14 +168,17 @@ class Manifest:
         return cls(d["block_size"], d["total_bits"],
                    [tuple(b) for b in d["blocks"]], hints)
 
-    def hint_array(self):
-        """[B, maxchunks] uint8 hints padded with HINT_NONE, or None."""
+    def hint_array(self, idxs=None):
+        """[B, maxchunks] uint8 hints padded with HINT_NONE, or None; with
+        idxs, the rows of those blocks alone, in that order."""
         if self.hints is None:
             return None
         from deflate_tpu_torch.ops.wave import HINT_NONE
-        cap = max((len(h) for h in self.hints), default=1)
-        out = np.full((len(self.hints), cap), HINT_NONE, np.uint8)
-        for i, h in enumerate(self.hints):
+        rows = (self.hints if idxs is None
+                else [self.hints[i] for i in idxs])
+        cap = max((len(h) for h in rows), default=1)
+        out = np.full((len(rows), cap), HINT_NONE, np.uint8)
+        for i, h in enumerate(rows):
             out[i, :len(h)] = np.frombuffer(h, np.uint8)
         return out
 
@@ -179,17 +186,22 @@ class Manifest:
     def out_size(self) -> int:
         return sum(b[2] for b in self.blocks)
 
+    def out_starts(self) -> list[int]:
+        """The output offset of each block, and the output size last."""
+        return [0, *itertools.accumulate(b[2] for b in self.blocks)]
+
     def blocks_for_range(self, start: int, end: int):
-        """Indices of blocks covering output bytes [start, end)."""
-        out = []
-        pos = 0
-        for i, (_, _, olen) in enumerate(self.blocks):
-            if pos < end and pos + olen > start:
-                out.append(i)
-            pos += olen
-            if pos >= end:
-                break
-        return out
+        """Indices of blocks covering output bytes [start, end): those
+        that end after start and begin before end."""
+        return list(range(*_cover(self.out_starts(), start, end)))
+
+
+def _cover(starts, start: int, end: int) -> tuple[int, int]:
+    """(i0, i1): the blocks i0..i1-1 that end after start and begin
+    before end, bisected in starts (Manifest.out_starts())."""
+    i0 = bisect.bisect_right(starts, start, 1) - 1
+    i1 = bisect.bisect_left(starts, end, 0, len(starts) - 1)
+    return i0, max(i0, i1)
 
 
 def _as_u8(data) -> np.ndarray:
@@ -274,23 +286,31 @@ def decode_all(stream: bytes, man: Manifest, device="cuda") -> bytes:
     blocks; if it flags any, the whole stream decodes on the host.
     device=None decodes every block on the host (the reference's
     device=False).  Counts the blocks sent to the host in
-    decode.blocks_fallback, and a stream K6 served in
-    decode.path.pallas_scalar."""
+    decode.blocks_fallback, and the decoder that served in
+    decode.path.wave or decode.path.pallas_scalar."""
     with metrics.span("decode"):
-        return _decode_all(stream, man, device)
+        hints = None if device is None else man.hint_array()
+        parts = _decode_blocks(stream, man.blocks, hints, device)
+        with metrics.span("decode.to_host"):
+            return b"".join(parts)
 
 
-def _decode_all(stream: bytes, man: Manifest, device) -> bytes:
+def _decode_blocks(stream: bytes, blocks, hints, device) -> list:
+    """Decode `blocks` ((bit_offset, bit_len, out_len) triples, in stream
+    order) of `stream`: decode_all's decoders, on any run of a stream's
+    blocks.  hints: their [len(blocks), n] entry-phase rows, or None.
+    Returns buffers (bytes or uint8 views of the device's rows) whose
+    concatenation is the blocks' output."""
     from deflate_tpu_torch.models import host_inflate as HI
 
-    if device is not None and man.hints is not None:
+    if device is not None and hints is not None:
         from deflate_tpu_torch.models import wave_decoder as WD
 
-        offs = [b[0] for b in man.blocks]
-        sizes = [b[2] for b in man.blocks]
         words, produced, err = WD.inflate_wave_device(
-            stream, offs, sizes, man.hint_array(), device=device)
-        bad = [i for i, (_, _, olen) in enumerate(man.blocks)
+            stream, [b[0] for b in blocks], [b[2] for b in blocks], hints,
+            device=device)
+        metrics.count("decode.path.wave")
+        bad = [i for i, (_, _, olen) in enumerate(blocks)
                if err[i] or produced[i] != olen]
         redo = {}
         if bad:                                     # per-block fallback
@@ -298,47 +318,67 @@ def _decode_all(stream: bytes, man: Manifest, device) -> bytes:
             with metrics.span("decode.fallback"):
                 for i in bad:
                     redo[i] = HI.inflate_raw(
-                        stream, start_bit=man.blocks[i][0],
-                        single_block=True)
+                        stream, start_bit=blocks[i][0], single_block=True)
         with metrics.span("decode.to_host"):
-            w = np.asarray(words).view(np.uint8).reshape(len(man.blocks),
-                                                         -1)
-            return b"".join(
-                redo[i] if i in redo else w[i, :olen].tobytes()
-                for i, (_, _, olen) in enumerate(man.blocks))
+            w = np.asarray(words).view(np.uint8).reshape(len(blocks), -1)
+            return [redo[i] if i in redo else w[i, :olen]
+                    for i, (_, _, olen) in enumerate(blocks)]
     if device is not None:
         from deflate_tpu_torch.models import block_decoder as BD
 
         try:
-            out = BD.inflate_manifest(stream, man.blocks, device=device)
-        except BD.PallasDecodeError:                # whole-stream fallback
-            metrics.count("decode.blocks_fallback", len(man.blocks))
+            out = BD.inflate_manifest(stream, blocks, device=device)
+        except BD.PallasDecodeError:                # whole-run fallback
+            metrics.count("decode.blocks_fallback", len(blocks))
         else:
             metrics.count("decode.path.pallas_scalar")
-            return out
+            return [out]
     with metrics.span("decode.fallback"):
-        out = bytearray()
-        for bit_off, _, _ in man.blocks:
-            out += HI.inflate_raw(stream, start_bit=bit_off,
-                                  single_block=True)
-        return bytes(out)
+        return [HI.inflate_raw(stream, start_bit=bit_off, single_block=True)
+                for bit_off, _, _ in blocks]
 
 
-def decode_range(stream: bytes, man: Manifest, start: int, end: int) -> bytes:
-    """Random-access decode of output bytes [start, end) on the host,
-    without touching the rest of the stream — possible because blocks are
-    independent (Q5)."""
-    from deflate_tpu_torch.models import host_inflate as HI
+def decode_range(stream: bytes, man: Manifest, start: int, end: int,
+                 device="cuda") -> bytes:
+    """Random-access decode of output bytes [start, end) on `device`,
+    without touching the rest of the stream — possible because blocks
+    are independent (Q5).
 
-    end = min(end, man.out_size)
-    if start >= end:
-        return b""
-    idxs = man.blocks_for_range(start, end)
-    out = bytearray()
-    base = sum(b[2] for b in man.blocks[:idxs[0]])
-    for i in idxs:
-        bit_off, _, _ = man.blocks[i]
-        # decode exactly one block at its original bit phase — the stored-
-        # block byte-align padding depends on the absolute stream phase
-        out += HI.inflate_raw(stream, start_bit=bit_off, single_block=True)
-    return bytes(out[start - base:end - base])
+    Cuts the stream to the byte span of the range's blocks, with their
+    offsets rebased (the in-byte phase kept: a stored block's padding
+    depends on it), and decodes those alone through decode_all's block
+    decode: on a torch device ("cuda" by default, or "cpu" for the plain
+    kernel versions) the wavefront with hints and K6 without, blocks it
+    flags going to the host (decode.blocks_fallback); with device=None
+    every block on the host.  Counts the blocks, their decoded bytes and
+    the bytes returned in decode.range_blocks, decode.range_bytes_decoded
+    and decode.range_bytes_returned."""
+    if start < 0:
+        raise ValueError(f"decode_range: start {start} < 0")
+    with metrics.span("decode"):
+        with metrics.span("decode.range_plan"):
+            starts = man.out_starts()
+            end = min(end, starts[-1])
+            if start >= end:
+                return b""
+            i0, i1 = _cover(starts, start, end)
+            first = man.blocks[i0][0] // 8
+            last_off, last_len, _ = man.blocks[i1 - 1]
+            sub = stream[first:-(-(last_off + last_len) // 8)]
+            blocks = [(off - 8 * first, bl, ol)
+                      for off, bl, ol in man.blocks[i0:i1]]
+            hints = (None if device is None
+                     else man.hint_array(range(i0, i1)))
+        metrics.count("decode.range_blocks", i1 - i0)
+        metrics.count("decode.range_bytes_decoded", starts[i1] - starts[i0])
+        metrics.count("decode.range_bytes_returned", end - start)
+        parts = _decode_blocks(sub, blocks, hints, device)
+        with metrics.span("decode.to_host"):
+            lo, hi = start - starts[i0], end - starts[i0]
+            kept, pos = [], 0
+            for p in parts:
+                n = len(p)
+                if pos < hi and pos + n > lo:
+                    kept.append(memoryview(p)[max(lo - pos, 0):hi - pos])
+                pos += n
+            return b"".join(kept)

@@ -317,6 +317,52 @@ def test_hintless_decode_all_counts_k6_and_its_copies(cuda_device):
     assert "decode.blocks_fallback" not in c
 
 
+def test_range_reads_of_the_cell_on_the_card(cuda_device):
+    """decode_range(device=cuda) on the logs-l3-range cell's windows (two
+    2 MiB chunks, the cell's 15-minute and 1-hour windows): each read is
+    the chunk's bytes and the plain reference's, no block on the host,
+    one wavefront decode a read (one K4 fill and one K11 a span bucket,
+    so at least one a read), and the range counters agree with the
+    manifest; a K6 read of the same chunk at level 2 without hints
+    too."""
+    from codecbench import harness
+    from codecbench.reference import range as reference
+
+    run = harness.Run(harness.load_cell("logs-l3-range.read"), 2 ** 31 + 26,
+                      cuda_device, chunk_bytes=2 << 20, pool=2)
+    try:
+        run.warm()
+        metrics.reset()
+        ops = run.loop(1.0)
+        c = metrics.snapshot()["counts"]
+        checks = run.judge(ops)
+        assert all(v == 0 for v, _ in checks.values()), checks
+        assert all(o.note is None for o in ops)
+        assert c["decode.path.wave"] == len(ops)
+        assert c["kernel.K4"] >= len(ops) and c["kernel.K11"] >= len(ops)
+        assert "kernel.K6" not in c
+        assert "decode.blocks_fallback" not in c
+        held = [o for o in ops if o.out is not None]
+        for o in held[:4]:
+            inp = run.inputs[o.index]
+            start, end, out = o.out
+            assert out == reference.decode_range(inp.stream, inp.man.blocks,
+                                                 start, end)
+        assert c["decode.range_bytes_returned"] == sum(o.size for o in ops)
+        chunk = run.chunks[0]
+        s, m = M.compress_with_manifest(chunk, level=2, hints=False,
+                                        device=cuda_device)
+        metrics.reset()
+        lo, hi = run.inputs[0].lo[0], run.inputs[0].hi[0]
+        assert M.decode_range(s, m, lo, hi, device=cuda_device) == chunk[
+            lo:hi]
+        c = metrics.snapshot()["counts"]
+        assert c["kernel.K6"] == 1 and c["decode.path.pallas_scalar"] == 1
+        assert c["decode.range_blocks"] == len(m.blocks_for_range(lo, hi))
+    finally:
+        run.close()
+
+
 def test_k7_kernel_matches_plain(cuda_device):
     """Random 0-48-bit packets at every bit phase, one block full to
     NPK, one empty, and the packet lists of a real level-3 encode; then

@@ -102,7 +102,7 @@ def stream_and_manifest():
 def test_decode_range_matches_reference(stream_and_manifest, rng):
     data, stream, man = stream_and_manifest
     start, end = rng
-    got = M.decode_range(stream, man, start, end)
+    got = M.decode_range(stream, man, start, end, device=None)
     jman = JM.Manifest.from_bytes(man.to_bytes())
     assert got == JM.decode_range(stream, jman, start, end)
     assert got == data[start:min(end, len(data))]
