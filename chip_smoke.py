@@ -1070,7 +1070,7 @@ def main() -> int:
         return bits // 8 + nbytes(torch, c[1:]) \
             + int(status[:, 0].clamp(min=0).sum()) + nbytes(torch, status)
 
-    k6 = calls["K6"]
+    k6 = [c[:5] for c in calls["K6"]]       # without the rows it fills
     check(f"K6 inflate_blocks (phase C, {k6_blocks} blocks; compared with "
           f"and plain_ms on blocks {list(K6_PICK)}, of block types "
           f"{picked_types})", "K6",

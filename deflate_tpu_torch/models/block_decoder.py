@@ -32,12 +32,15 @@ MAX_BLOCKS = 1 << 20          # inflate_stream's cap on chained blocks
 
 
 def inflate_manifest(stream: bytes, blocks, device="cuda") -> bytes:
-    """Decode manifest-indexed blocks, BATCH per launch.  ``blocks`` is an
-    iterable of (bit_offset, bit_len, out_len) triples
-    (runtime/manifest.py format).
+    """Decode manifest-indexed blocks, BATCH per launch, the stream staged
+    once (ops/block_inflate.inflate_batches).  ``blocks`` is an iterable
+    of (bit_offset, bit_len, out_len) triples (runtime/manifest.py
+    format).
 
-    Returns the concatenated output; raises PallasDecodeError if any
-    block errs or produces another size than the manifest's."""
+    Returns the concatenated output, built by one copy from a batch's
+    rows (a stream of more batches copies the batches once more to join
+    them); raises PallasDecodeError if any block errs or produces another
+    size than the manifest's."""
     from deflate_tpu_torch.ops import block_inflate as BI
 
     blocks = list(blocks)
@@ -45,19 +48,21 @@ def inflate_manifest(stream: bytes, blocks, device="cuda") -> bytes:
         return b""
     offs = np.asarray([b[0] for b in blocks], np.int64)
     out_lens = np.asarray([b[2] for b in blocks], np.int64)
+    starts = range(0, len(blocks), BATCH)
+    batches = BI.inflate_batches(
+        stream, (offs[s:s + BATCH] for s in starts), device=device)
     parts = []
-    for s in range(0, len(blocks), BATCH):
-        sl = slice(s, min(s + BATCH, len(blocks)))
-        o, produced, err, _ = BI.inflate_blocks(stream, offs[sl],
-                                                device=device)
-        want = out_lens[sl]
+    for s, (o, produced, err, _) in zip(starts, batches):
+        want = out_lens[s:s + BATCH]
         if np.any(err != 0) or np.any(produced != want):
             bad = int(np.argmax((err != 0) | (produced != want)))
             raise PallasDecodeError(
                 f"block {s + bad}: err={int(err[bad])} "
                 f"produced={int(produced[bad])} want={int(want[bad])}")
         with metrics.span("decode.to_host"):
-            parts.extend(o[i, :n].tobytes() for i, n in enumerate(want))
+            rows, w = memoryview(o.reshape(-1)), BI.OUT_BYTES
+            parts.append(b"".join([rows[i * w:i * w + n]
+                                   for i, n in enumerate(want.tolist())]))
     with metrics.span("decode.to_host"):
         return b"".join(parts)
 

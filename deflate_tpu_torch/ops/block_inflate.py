@@ -12,7 +12,7 @@ error, as are every other malformed condition (module constants below).
 
 The host side (constants, table-entry format, ``build_table_host``,
 ``make_statics``, ``prepare_blocks``) is copied from the reference;
-``prepare_blocks`` keeps its window arithmetic (1024-word aligned
+``block_windows`` keeps its window arithmetic (1024-word aligned
 ``start_w``, ``bit0``, and the ``avail`` cap of (IN_W - 3) * 32 bits past
 ``start_w``), because that cap decides ``err`` for long blocks.  It drops
 the reference's chain padding and span ordering, which served the TPU's
@@ -25,6 +25,10 @@ where err is set only err is meaningful.  ``inflate_blocks_records`` is
 the kernel's design in plain form: the same loop emits literals and
 match records (``decode_tokens``), and K4's pointer jumping
 (``wave_fill.fill_matches_jump``) resolves the copies.
+
+``inflate_batches`` is the path of ``decode_all`` without hints: the
+stream staged once, each batch's operands sent and its rows and status
+brought back through page-locked host memory, one copy each way.
 """
 from __future__ import annotations
 
@@ -190,21 +194,38 @@ def make_statics():
 
 
 # ===================== host prep ==========================================
-def prepare_blocks(stream: bytes, bit_offsets):
-    """Kernel operands for blocks starting at `bit_offsets` (absolute bit
-    of each BFINAL bit): stream words int32 [NW] (zero-padded by a whole
-    window), start_w int32 [B] (1024-word aligned window start), bit0
-    int32 [B] (block start relative to start_w), avail int32 [B] (bits
-    readable past start_w: the stream's end, capped at (IN_W - 3) * 32)."""
-    nbits = len(stream) * 8
+def stream_words(stream: bytes, pin: bool = False) -> torch.Tensor:
+    """The stream's words int32 [NW] in a host tensor, written by one
+    copy, zero past the stream's end to a whole word and then IN_W + 8
+    words; page-locked where `pin`, from torch's caching host allocator,
+    which hands the memory to a later call once this tensor is gone."""
+    n = len(stream)
+    words = torch.empty(-(-n // 4) + IN_W + 8, dtype=torch.int32,
+                        pin_memory=pin)
+    b = words.numpy().view(np.uint8)
+    b[:n] = np.frombuffer(stream, np.uint8)
+    b[n:] = 0
+    return words
+
+
+def block_windows(nbits: int, bit_offsets):
+    """Each block's window in a stream of `nbits` bits: start_w int32 [B]
+    (1024-word aligned window start), bit0 int32 [B] (block start
+    relative to start_w), avail int32 [B] (bits readable past start_w:
+    the stream's end, capped at (IN_W - 3) * 32)."""
     offs = np.asarray(bit_offsets, np.int64)
-    start_w = ((offs // 32) // 1024 * 1024).astype(np.int64)
+    start_w = (offs // 32) // 1024 * 1024
     bit0 = (offs - 32 * start_w).astype(np.int32)
     avail = np.minimum(nbits - 32 * start_w, (IN_W - 3) * 32).astype(np.int32)
-    pad = (-len(stream)) % 4
-    words = np.frombuffer(stream + b"\x00" * pad, np.uint8).view(np.int32)
-    words = np.concatenate([words, np.zeros(IN_W + 8, np.int32)])
-    return words, start_w.astype(np.int32), bit0, avail
+    return start_w.astype(np.int32), bit0, avail
+
+
+def prepare_blocks(stream: bytes, bit_offsets):
+    """Kernel operands for blocks starting at `bit_offsets` (absolute bit
+    of each BFINAL bit), as numpy: the stream's words (stream_words) and
+    start_w, bit0, avail (block_windows)."""
+    return (stream_words(stream).numpy(),
+            *block_windows(len(stream) * 8, bit_offsets))
 
 
 # ===================== plain version ======================================
@@ -441,10 +462,13 @@ def inflate_blocks_records(words, start_w, bit0, avail, statics):
     return out.to(dev), torch.from_numpy(status).to(dev)
 
 
-def inflate_blocks_kernel(words, start_w, bit0, avail, statics):
+def inflate_blocks_kernel(words, start_w, bit0, avail, statics, rows=None):
     """K6 on the card: same contract as inflate_blocks_plain; the design
     of inflate_blocks_records (decode to literals and match records, then
-    K4's pointer-jumping fill), with a scratch of NM records a block."""
+    K4's pointer-jumping fill), with a scratch of NM records a block.
+    out and status are views of `rows`, an int32 tensor of
+    B * (OUT_W + 3) words on the card (out's rows, then status), so that
+    one copy brings both back; allocated when None."""
     words, start_w, bit0, avail, statics = (
         x.to(torch.int32).contiguous()
         for x in (words, start_w, bit0, avail, statics))
@@ -454,8 +478,14 @@ def inflate_blocks_kernel(words, start_w, bit0, avail, statics):
             or statics.shape != (STATICS_W,) or words.dim() != 1:
         raise ValueError("inflate operands must be words [NW], start_w, "
                          "bit0, avail [B] and statics [2048]")
-    out = torch.empty((B, OUT_W), dtype=torch.int32, device=dev)
-    status = torch.empty((B, 3), dtype=torch.int32, device=dev)
+    if rows is None:
+        rows = torch.empty(B * (OUT_W + 3), dtype=torch.int32, device=dev)
+    elif (rows.shape != (B * (OUT_W + 3),) or rows.dtype != torch.int32
+          or rows.device != dev):
+        raise ValueError("rows must be int32 [B * (OUT_W + 3)] on the "
+                         "operands' device")
+    out = rows[:B * OUT_W].view(B, OUT_W)
+    status = rows[B * OUT_W:].view(B, 3)
     if B:
         recs = torch.empty((B, 2 * NM), dtype=torch.int32, device=dev)
         err = _build.lib("block_inflate").dt_inflate_blocks(
@@ -468,10 +498,76 @@ def inflate_blocks_kernel(words, start_w, bit0, avail, statics):
     return out, status
 
 
-def inflate_blocks_op(words, start_w, bit0, avail, statics):
-    """CUDA tensors run K6; CPU tensors the plain version."""
-    fn = inflate_blocks_kernel if words.is_cuda else inflate_blocks_plain
-    return fn(words, start_w, bit0, avail, statics)
+def inflate_rows(words, start_w, bit0, avail, statics):
+    """Decode B blocks on the operands' device into one int32 tensor
+    [B * (OUT_W + 3)]: out's rows, then status.  CUDA tensors run K6;
+    CPU tensors the plain version."""
+    if words.is_cuda:
+        rows = torch.empty(start_w.shape[0] * (OUT_W + 3), dtype=torch.int32,
+                           device=words.device)
+        inflate_blocks_kernel(words, start_w, bit0, avail, statics, rows)
+        return rows
+    out, status = inflate_blocks_plain(words, start_w, bit0, avail, statics)
+    return torch.cat([out.reshape(-1), status.reshape(-1)])
+
+
+_statics: dict = {}
+
+
+def device_statics(dev: torch.device) -> torch.Tensor:
+    """make_statics() on `dev`, copied there once a device."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _statics:
+        _statics[dev] = metrics.to_device(make_statics(), dev)
+    return _statics[dev]
+
+
+def inflate_batches(stream: bytes, batches, device="cuda"):
+    """Decode each batch of blocks of one stream on `device`: `batches`
+    is an iterable of bit-offset sequences, as inflate_blocks takes;
+    yields inflate_blocks' four arrays a batch.
+
+    The stream is staged once for all batches.  On the card, its words
+    (with the zero tail) and each batch's start_w, bit0 and avail are
+    written into page-locked host tensors and sent by one copy each; the
+    statics are sent once a device.  K6 writes out and status into one
+    allocation, which one copy brings back into page-locked memory, and
+    the stream is synchronised once.  A batch's out is a view of that
+    memory: it stays valid while the array lives, and the memory goes
+    back to torch's cache after.  On the CPU nothing is pinned and the
+    plain version decodes.
+
+    Spans: decode.windows (the staging writes), decode.to_device (the
+    copies to the card), decode.block_inflate (K6, or the plain version
+    on the CPU), decode.to_host (the copy back)."""
+    dev = _build.torch_device(device)
+    pin = dev.type == "cuda"
+    nbits = 8 * len(stream)
+    with metrics.span("decode.windows"):
+        words = stream_words(stream, pin)
+    with metrics.span("decode.to_device"):
+        words = metrics.to_device_pinned(words, dev)
+        statics = device_statics(dev)
+    for offs in batches:
+        B = len(offs)
+        with metrics.span("decode.windows"):
+            win = torch.empty((3, B), dtype=torch.int32, pin_memory=pin)
+            w = win.numpy()
+            w[0], w[1], w[2] = block_windows(nbits, offs)
+        with metrics.span("decode.to_device"):
+            start_w, bit0, avail = metrics.to_device_pinned(win, dev)
+        with metrics.span("decode.block_inflate"):
+            rows = inflate_rows(words, start_w, bit0, avail, statics)
+        with metrics.span("decode.to_host"):
+            rows = metrics.to_host_pinned(rows)
+            if pin:
+                torch.cuda.current_stream(dev).synchronize()
+            rows = rows.numpy()
+        out = rows[:B * OUT_W].reshape(B, OUT_W).view(np.uint8)
+        status = rows[B * OUT_W:].reshape(B, 3)
+        end_bit = 32 * w[0].astype(np.int64) + status[:, 2].astype(np.int64)
+        yield out, status[:, 0], status[:, 1], end_bit
 
 
 def inflate_blocks(stream: bytes, bit_offsets, device="cuda"):
@@ -479,21 +575,6 @@ def inflate_blocks(stream: bytes, bit_offsets, device="cuda"):
 
     bit_offsets: absolute bit position of each block's BFINAL bit.
     Returns numpy (out uint8 [B, 32768], produced int32 [B], err int32
-    [B], end_bit int64 [B] absolute bit position after each block).
-
-    Spans: decode.windows (the operands), decode.to_device (their copies),
-    decode.block_inflate (K6, or the plain version on the CPU),
-    decode.to_host (status and rows back)."""
-    with metrics.span("decode.windows"):
-        words, start_w, bit0, avail = prepare_blocks(stream, bit_offsets)
-    dev = _build.torch_device(device)
-    with metrics.span("decode.to_device"):
-        ops = [metrics.to_device(x, dev)
-               for x in (words, start_w, bit0, avail, make_statics())]
-    with metrics.span("decode.block_inflate"):
-        out, status = inflate_blocks_op(*ops)
-    with metrics.span("decode.to_host"):
-        status = metrics.to_host(status).numpy()
-        out = metrics.to_host(out).numpy().view(np.uint8)
-    end_bit = 32 * start_w.astype(np.int64) + status[:, 2].astype(np.int64)
-    return out, status[:, 0], status[:, 1], end_bit
+    [B], end_bit int64 [B] absolute bit position after each block): one
+    batch of inflate_batches, with its spans."""
+    return next(inflate_batches(stream, [bit_offsets], device))

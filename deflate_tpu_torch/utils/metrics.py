@@ -227,6 +227,38 @@ def to_host(t):
     return t.cpu()
 
 
+def _count_pinned(kind: str, t) -> None:
+    n = t.numel() * t.element_size()
+    count(kind)
+    count(kind + "_bytes", n)
+    count("copy.pinned")
+    count("copy.pinned_bytes", n)
+
+
+def to_device_pinned(t, device):
+    """t, a page-locked host tensor, on `device` by one copy that does
+    not block the host; counted as copy.h2d and copy.pinned, with their
+    _bytes, where it crosses to a device (t itself on the host)."""
+    out = t.to(device, non_blocking=True)
+    if out.device != t.device:
+        _count_pinned("copy.h2d", t)
+    return out
+
+
+def to_host_pinned(t):
+    """t in a new page-locked host tensor by one copy that does not
+    block the host: the caller synchronises t's stream before it reads
+    the result.  Counted as copy.d2h and copy.pinned, with their _bytes,
+    where t is on a device (t itself on the host)."""
+    import torch
+
+    if t.device.type == "cpu":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    _count_pinned("copy.d2h", t)
+    return out.copy_(t, non_blocking=True)
+
+
 @contextlib.contextmanager
 def profile_to(logdir: str):
     """Capture a host and device trace of the region, written to logdir

@@ -300,21 +300,72 @@ def test_forced_decode_of_a_chunk_walks_in_pieces(cuda_device):
 
 def test_hintless_decode_all_counts_k6_and_its_copies(cuda_device):
     """decode_all of a hintless manifest of 257 blocks: K6 once per 256
-    blocks, each launch with its five operand copies to the card (words,
-    start_w, bit0, avail, statics) and two back (status, rows)."""
+    blocks; the stream's words sent once, each launch's start_w, bit0 and
+    avail by one copy and its rows and status back by one, each through
+    page-locked memory.  The statics go to the card at the first call,
+    made before the count."""
     data = corpus(257, seed=64)
     s, m = M.compress_with_manifest(data, level=2, hints=False,
                                     device=cuda_device)
+    assert M.decode_all(s, m, device=cuda_device) == data
     metrics.reset()
     assert M.decode_all(s, m, device=cuda_device) == data
     c = metrics.snapshot()["counts"]
     assert {k: v for k, v in c.items() if k.startswith("kernel.")} == {
         "kernel.K6": 2}
-    assert c["copy.h2d"] == 10 and c["copy.d2h"] == 4
-    assert c["copy.h2d_bytes"] >= 2 * len(s)
-    assert c["copy.d2h_bytes"] >= len(data)
+    assert c["copy.h2d"] == 3 and c["copy.d2h"] == 2
+    assert c["copy.pinned"] == 5
+    words = 4 * (-(-len(s) // 4) + BI.IN_W + 8)
+    assert c["copy.h2d_bytes"] == words + 12 * 257
+    assert c["copy.d2h_bytes"] == 4 * 257 * (BI.OUT_W + 3)
+    assert c["copy.pinned_bytes"] == c["copy.h2d_bytes"] + c[
+        "copy.d2h_bytes"]
     assert c["decode.path.pallas_scalar"] == 1
     assert "decode.blocks_fallback" not in c
+
+
+def test_hintless_outputs_own_their_bytes(cuda_device):
+    """Two hintless manifests of the same shape decoded back to back:
+    the second call reuses the first's page-locked rows, and the first
+    output, and the rows inflate_blocks returned for it, are unchanged."""
+    a, b = corpus(3, seed=65), corpus(3, seed=66)
+    sa, ma = M.compress_with_manifest(a, level=2, hints=False,
+                                      device=cuda_device)
+    sb, mb = M.compress_with_manifest(b, level=2, hints=False,
+                                      device=cuda_device)
+    out_a = M.decode_all(sa, ma, device=cuda_device)
+    rows_a = BI.inflate_blocks(sa, [x[0] for x in ma.blocks],
+                               device=cuda_device)[0]
+    want_rows = rows_a.copy()
+    for _ in range(3):
+        out_b = M.decode_all(sb, mb, device=cuda_device)
+        BI.inflate_blocks(sb, [x[0] for x in mb.blocks], device=cuda_device)
+    assert type(out_a) is bytes and type(out_b) is bytes
+    assert out_a == a and out_b == b
+    assert (rows_a == want_rows).all()
+
+
+def test_pinned_copies_on_k6s_path_alone(cuda_device):
+    """A hintless decode_range stages its copies through page-locked
+    memory (stream, windows, rows back); a hinted one, on the wavefront,
+    counts none."""
+    data = corpus(4, seed=67)
+    lo, hi = 1000, 70000
+    hs, hm = M.compress_with_manifest(data, level=2, hints=False,
+                                      device=cuda_device)
+    ws, wm = M.compress_with_manifest(data, level=2, device=cuda_device)
+    for s, m in ((hs, hm), (ws, wm)):
+        assert M.decode_range(s, m, lo, hi, device=cuda_device) == data[
+            lo:hi]
+    metrics.reset()
+    assert M.decode_range(hs, hm, lo, hi, device=cuda_device) == data[lo:hi]
+    c = metrics.snapshot()["counts"]
+    assert c["kernel.K6"] == 1 and c["copy.pinned"] == 3
+    metrics.reset()
+    assert M.decode_range(ws, wm, lo, hi, device=cuda_device) == data[lo:hi]
+    c = metrics.snapshot()["counts"]
+    assert c["decode.path.wave"] == 1 and c["copy.h2d"] >= 1
+    assert "copy.pinned" not in c and "copy.pinned_bytes" not in c
 
 
 def test_range_reads_of_the_cell_on_the_card(cuda_device):

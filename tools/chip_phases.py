@@ -72,7 +72,7 @@ PHASES = [(E, "_encode"), (LZ, "find_matches"), (LZ, "greedy_parse"),
           (W, "merge_match_runs"), (WF, "pack_fill_recs"),
           (WF, "fill_matches"), (WD, "skeleton_plan"),
           (WD, "_wave_group"), (WF, "fill_matches_hist"),
-          (BI, "prepare_blocks"), (BI, "inflate_blocks_op"),
+          (BI, "stream_words"), (BI, "block_windows"), (BI, "inflate_rows"),
           (DEC, "decode_stream"), (DEC, "decode_block"),
           (HD, "parse_dynamic_header"), (IS, "build_lut"),
           (IS, "token_scan"), (IS, "find_chain"), (DEC, "_resolve"),
