@@ -562,7 +562,7 @@ def inflate_batches(stream: bytes, batches, device="cuda"):
         with metrics.span("decode.to_host"):
             rows = metrics.to_host_pinned(rows)
             if pin:
-                torch.cuda.current_stream(dev).synchronize()
+                metrics.sync_stream(dev)
             rows = rows.numpy()
         out = rows[:B * OUT_W].reshape(B, OUT_W).view(np.uint8)
         status = rows[B * OUT_W:].reshape(B, 3)

@@ -12,7 +12,8 @@ The recorder marks the layer boundaries of the encode and decode paths:
     count("copy.h2d")                   # an event, always counted
     with recording(sync=True):         # spans record only in here
         ...
-    snapshot()  # {"spans": {name: {"n", "total_s", "self_s"}},
+    snapshot()  # {"spans": {name: {"n", "total_s", "self_s",
+                #                    "wait_s", "sync_s"}},
                 #  "counts": {name: n}, "ops": n}
 
 While recording is off (the default) ``span`` returns one shared no-op
@@ -23,6 +24,14 @@ with; the outermost open span is an op, and the spans nested in it
 carry its id.  Under an active torch profiler a span also opens a
 profiler range named SPAN_PREFIX + name on the host timeline, so the
 trace carries the same intervals.  Spans nest on one thread.
+
+Beside its row each span keeps the nanoseconds the host spent blocked
+on the card while it was the innermost open span, in two sums.  Its
+wait: the program's own blocking, in to_device's and to_host's copies
+across and in sync_stream.  Its sync: the recorder's own
+synchronisations (a span's opening one waits for its parent's work and
+is charged to the parent, its closing one to itself), which an
+unrecorded run never makes.  While recording is off nothing is timed.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ _on = False                 # spans record
 _sync = None                # torch.cuda.synchronize while spans synchronise
 _stack: list = []           # open spans, innermost last
 _spans: list = []           # closed: (name, id, parent, op, start_ns, end_ns)
+_host: dict = {}            # closed span's id: (wait_ns, sync_ns)
 _ops: list = []             # (op id, under a profiler, the op's counts)
 _counts: dict = {}          # every count since the last reset()
 _op_counts = None           # the open op's counts while recording
@@ -48,6 +58,22 @@ def _profiling() -> bool:
     import torch
 
     return torch._C._autograd._profiler_enabled()
+
+
+def _waited(t0: int) -> None:
+    """Charge the program's wait since t0 (time.time_ns) to the innermost
+    open span, if any."""
+    if _stack:
+        _stack[-1].wait += time.time_ns() - t0
+
+
+def _synced() -> None:
+    """The recorder's synchronisation, charged to the innermost open
+    span's sync, if any."""
+    t0 = time.time_ns()
+    _sync()
+    if _stack:
+        _stack[-1].sync += time.time_ns() - t0
 
 
 class _Off:
@@ -65,7 +91,8 @@ _OFF = _Off()
 
 
 class _Span:
-    __slots__ = ("name", "id", "parent", "op", "start", "rf")
+    __slots__ = ("name", "id", "parent", "op", "start", "rf", "wait",
+                 "sync")
 
     def __init__(self, name: str):
         self.name = name
@@ -74,7 +101,8 @@ class _Span:
         global _next_id, _op_counts
         profiled = _profiling()
         if _sync is not None and not profiled:
-            _sync()
+            _synced()                   # the parent's work, before self
+        self.wait = self.sync = 0
         self.id = _next_id
         _next_id += 1
         if _stack:
@@ -103,7 +131,7 @@ class _Span:
     def __exit__(self, *exc):
         global _op_counts
         if _sync is not None and self.rf is None:
-            _sync()
+            _synced()
         end = time.time_ns()
         if self.rf is not None:
             self.rf.__exit__(*exc)
@@ -112,6 +140,7 @@ class _Span:
             _op_counts = None
         _spans.append((self.name, self.id, self.parent, self.op, self.start,
                        end))
+        _host[self.id] = (self.wait, self.sync)
         return False
 
 
@@ -166,6 +195,7 @@ def reset() -> None:
     """Forget every recorded span, op and count."""
     global _op_counts
     _spans.clear()
+    _host.clear()
     _ops.clear()
     _counts.clear()
     _op_counts = None
@@ -174,7 +204,9 @@ def reset() -> None:
 def snapshot(profiled: bool | None = None) -> dict:
     """What was recorded since the last reset(): per span name its number
     of intervals, their summed seconds and their self seconds (less the
-    part that their child spans cover), the counts, and the number of ops.
+    part that their child spans cover), the seconds the host was blocked
+    on the card in them by the program (wait_s) and by the recorder's
+    synchronisations (sync_s), the counts, and the number of ops.
     profiled=None: every span and every count; False or True: only the
     ops that ran without or under a torch profiler, with the counts made
     inside them."""
@@ -198,20 +230,32 @@ def snapshot(profiled: bool | None = None) -> dict:
     for name, sid, parent, op, s, e in _spans:
         if keep is not None and op not in keep:
             continue
-        d = out.setdefault(name, {"n": 0, "total_s": 0.0, "self_s": 0.0})
+        d = out.setdefault(name, {"n": 0, "total_s": 0.0, "self_s": 0.0,
+                                  "wait_s": 0.0, "sync_s": 0.0})
+        wait, sync = _host[sid]
         d["n"] += 1
         d["total_s"] += (e - s) * 1e-9
         d["self_s"] += (e - s - child.get(sid, 0)) * 1e-9
+        d["wait_s"] += wait * 1e-9
+        d["sync_s"] += sync * 1e-9
     return {"spans": out, "counts": counts, "ops": nops}
 
 
 def to_device(a, device):
     """A numpy array or tensor on `device`, counted as copy.h2d and
-    copy.h2d_bytes where it crosses from the host."""
+    copy.h2d_bytes where it crosses from the host; while recording, that
+    blocking copy (the card's work before it, and the copy) is a wait of
+    the innermost open span."""
     import torch
 
     t = torch.from_numpy(a) if isinstance(a, np.ndarray) else a
-    out = t.to(device)
+    if _on:
+        t0 = time.time_ns()
+        out = t.to(device)
+        if out.device != t.device:
+            _waited(t0)
+    else:
+        out = t.to(device)
     if out.device != t.device:
         count("copy.h2d")
         count("copy.h2d_bytes", t.numel() * t.element_size())
@@ -220,11 +264,33 @@ def to_device(a, device):
 
 def to_host(t):
     """t on the host, counted as copy.d2h and copy.d2h_bytes where it
-    comes from a device."""
+    comes from a device; while recording, the blocking read (the card's
+    work before the copy, and the copy) is a wait of the innermost open
+    span."""
     if t.device.type != "cpu":
         count("copy.d2h")
         count("copy.d2h_bytes", t.numel() * t.element_size())
+        if _on:
+            t0 = time.time_ns()
+            out = t.cpu()
+            _waited(t0)
+            return out
     return t.cpu()
+
+
+def sync_stream(device) -> None:
+    """Block the host until `device`'s current stream has run what was
+    enqueued on it; while recording, the wait is the innermost open
+    span's."""
+    import torch
+
+    stream = torch.cuda.current_stream(device)
+    if not _on:
+        stream.synchronize()
+        return
+    t0 = time.time_ns()
+    stream.synchronize()
+    _waited(t0)
 
 
 def _count_pinned(kind: str, t) -> None:

@@ -368,6 +368,42 @@ def test_pinned_copies_on_k6s_path_alone(cuda_device):
     assert "copy.pinned" not in c and "copy.pinned_bytes" not in c
 
 
+def test_spans_record_the_host_s_waits_on_the_card(cuda_device):
+    """Under recording(sync=True): a hintless decode_all's K6 is waited
+    for by the recorder at the end of decode.block_inflate (sync_s) and
+    its pinned copy back by sync_stream in decode.to_host (wait_s); a
+    device decode_range's stages are waited for by the recorder and its
+    copies by the program; each within its span's self time."""
+    data = corpus(257, seed=68)
+    lo, hi = 5000, 200000
+    hs, hm = M.compress_with_manifest(data, level=2, hints=False,
+                                      device=cuda_device)
+    ws, wm = M.compress_with_manifest(data, level=2, device=cuda_device)
+    assert M.decode_all(hs, hm, device=cuda_device) == data
+    assert M.decode_range(ws, wm, lo, hi, device=cuda_device) == data[lo:hi]
+    metrics.reset()
+    try:
+        with metrics.recording(sync=True):
+            assert M.decode_all(hs, hm, device=cuda_device) == data
+            hint = metrics.snapshot()["spans"]
+            metrics.reset()
+            assert M.decode_range(ws, wm, lo, hi,
+                                  device=cuda_device) == data[lo:hi]
+            spans = metrics.snapshot()["spans"]
+    finally:
+        metrics.reset()
+    k6, back = hint["decode.block_inflate"], hint["decode.to_host"]
+    assert 0 < k6["sync_s"] <= k6["self_s"]
+    assert 0 < back["wait_s"] <= back["self_s"]
+    stages = spans["decode.stages"]
+    assert 0 < stages["sync_s"] < stages["self_s"]
+    for name in ("decode.to_device", "decode.to_host"):
+        assert 0 < spans[name]["wait_s"] <= spans[name]["self_s"]
+    for v in list(hint.values()) + list(spans.values()):
+        assert v["wait_s"] >= 0 and v["sync_s"] >= 0
+        assert v["wait_s"] + v["sync_s"] <= v["self_s"] + 1e-6
+
+
 def test_range_reads_of_the_cell_on_the_card(cuda_device):
     """decode_range(device=cuda) on the logs-l3-range cell's windows (two
     2 MiB chunks, the cell's 15-minute and 1-hour windows): each read is

@@ -7,8 +7,10 @@ off, and the one card case runs where JAX is absent:
 """
 import os
 import time
+import types
 import zlib
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -170,6 +172,132 @@ def test_profile_to_shows_spans(tmp_path):
     assert metrics.SPAN_PREFIX + "region" in names
     assert metrics.SPAN_PREFIX + "after" not in names
     assert set(metrics.snapshot()["spans"]) == {"region"}
+
+
+def test_a_synchronisation_s_wait_goes_to_the_span_it_blocks(monkeypatch):
+    """The recorder's synchronisations are kept apart from the program's
+    waits, as sync_s: a span's opening one waits for work its parent
+    enqueued and is the parent's (nobody's for an op); its closing one
+    is its own.  The stand-in synchronisations sleep 40 ms (the op's
+    opening), 30 ms (the child's opening), 5 ms (the child's closing)
+    and 2 ms (the op's closing)."""
+    sleeps = iter([0.040, 0.030, 0.005, 0.002])
+    with metrics.recording(sync=False):
+        monkeypatch.setattr(metrics, "_sync",
+                            lambda: time.sleep(next(sleeps)))
+        with metrics.span("op"):
+            with metrics.span("op.child"):
+                pass
+    sp = metrics.snapshot()["spans"]
+    assert 0.005 <= sp["op.child"]["sync_s"] < 0.030
+    assert 0.032 <= sp["op"]["sync_s"] < 0.070
+    for v in sp.values():
+        assert v["wait_s"] == 0
+        assert v["sync_s"] <= v["self_s"] + 1e-6
+
+
+def test_to_host_of_a_host_tensor_adds_no_wait():
+    with metrics.recording(sync=False):
+        with metrics.span("op"):
+            metrics.to_host(torch.arange(4))
+            metrics.to_device(np.arange(4), "cpu")
+    assert metrics.snapshot()["spans"]["op"]["wait_s"] == 0
+
+
+class _Across:
+    """A host tensor whose copy to a device takes 5 ms."""
+    device = torch.device("cpu")
+
+    def __init__(self):
+        self.calls = 0
+
+    def to(self, device):
+        self.calls += 1
+        time.sleep(0.005)
+        return types.SimpleNamespace(device=torch.device(device))
+
+    def numel(self):
+        return 4
+
+    def element_size(self):
+        return 2
+
+
+def test_to_device_times_a_copy_across_while_recording():
+    t = _Across()
+    metrics.to_device(t, "meta")                    # off: not timed
+    with metrics.recording(sync=False):
+        with metrics.span("op"):
+            with metrics.span("op.to_device"):
+                metrics.to_device(t, "meta")
+    assert t.calls == 2
+    snap = metrics.snapshot()
+    assert snap["counts"]["copy.h2d_bytes"] == 2 * 8
+    sp = snap["spans"]
+    assert sp["op"]["wait_s"] == 0
+    assert 0.005 <= sp["op.to_device"]["wait_s"] \
+        <= sp["op.to_device"]["self_s"]
+
+
+class _Stream:
+    """A device's current stream whose synchronise sleeps 5 ms."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def synchronize(self):
+        self.calls += 1
+        time.sleep(0.005)
+
+
+def test_sync_stream_waits_for_the_stream_and_times_it_while_recording(
+        monkeypatch):
+    stream = _Stream()
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: stream)
+    metrics.sync_stream("cuda")                     # off: not timed
+    assert stream.calls == 1
+    with metrics.recording(sync=False):
+        metrics.sync_stream("cuda")                 # no span: nobody's
+        with metrics.span("op"):
+            with metrics.span("op.to_host"):
+                metrics.sync_stream("cuda")
+    assert stream.calls == 3
+    sp = metrics.snapshot()["spans"]
+    assert sp["op"]["wait_s"] == 0
+    assert 0.005 <= sp["op.to_host"]["wait_s"] <= sp["op.to_host"]["self_s"]
+
+
+def test_recording_off_reads_no_clock_and_spans_stay_the_shared_no_op(
+        monkeypatch):
+    def refuse():
+        raise AssertionError("clock read while recording is off")
+
+    monkeypatch.setattr(metrics, "time",
+                        types.SimpleNamespace(time_ns=refuse))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: _Stream())
+    assert metrics.span("a") is metrics.span("b") is metrics._OFF
+    with metrics.span("a"):
+        assert metrics.to_host(torch.arange(3)).sum() == 3
+        metrics.to_device(_Across(), "meta")
+        metrics.sync_stream("cuda")
+    assert metrics.snapshot()["spans"] == {}
+
+
+def test_profiled_spans_carry_the_host_fields():
+    """Under a profiler the recorder does not synchronise: a span's wait
+    is the program's own blocking alone, none on the CPU, and its sync
+    is 0."""
+    with metrics.recording(sync=False):
+        with profile(activities=[ProfilerActivity.CPU]):
+            with metrics.span("profiled"):
+                with metrics.span("profiled.part"):
+                    torch.arange(1000).sum()
+    sp = metrics.snapshot(profiled=True)["spans"]
+    assert set(sp) == {"profiled", "profiled.part"}
+    for v in sp.values():
+        assert set(v) == {"n", "total_s", "self_s", "wait_s", "sync_s"}
+        assert v["wait_s"] == v["sync_s"] == 0
 
 
 def _recorded(fn):
